@@ -1,0 +1,92 @@
+"""Public wrappers around the port's kernels (port of
+``src/repro/kernels/ops.py``).
+
+Each wrapper keeps the reference's padding contract and picks its path
+from the device of the tensor it is given: a CUDA tensor launches the
+hand-written kernel (and a failed build or launch raises); a CPU tensor
+takes the kernel's plain PyTorch version.  There is no other switch and
+no fallback from one to the other.
+
+Each wrapper counts its kernel launches in a plain ``int`` attribute
+(``encode_keys.launches``, ...), bumped only where the kernel launches,
+so a run can show that its main path went through the kernels.
+:func:`reset_launches` sets every count to 0.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import rmi as rmi_lib
+from repro_torch.core.encoding import ENCODED_BYTES, SENTINEL
+from repro_torch.kernels import bitonic, encode, rmi
+
+_INT32_MAX = 2**31 - 1
+
+
+def _require_cpu(t: torch.Tensor, what: str) -> None:
+    if t.device.type != "cpu":
+        raise ValueError(f"{what}: no kernel for device {t.device}")
+
+
+def encode_keys(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(N, K) uint8 keys -> (hi, lo) int64-carried u32 words; keys are
+    zero-padded or truncated to the 8 encoded bytes."""
+    w = keys.shape[1]
+    if w < ENCODED_BYTES:
+        keys = torch.nn.functional.pad(keys, (0, ENCODED_BYTES - w))
+    keys = keys[:, :ENCODED_BYTES].contiguous()
+    if keys.is_cuda:
+        encode_keys.launches += 1
+        return encode.encode_cuda(keys)
+    _require_cpu(keys, "encode_keys")
+    return encode.encode_plain(keys)
+
+
+def rmi_bucket(
+    params: rmi_lib.RMIParams,
+    hi: torch.Tensor,
+    lo: torch.Tensor,
+    n_buckets: int,
+) -> torch.Tensor:
+    """Fused RMI inference + equi-depth bucket id, (N,) int32."""
+    if hi.is_cuda:
+        rmi_bucket.launches += 1
+        return rmi.rmi_bucket_cuda(params, hi, lo, n_buckets)
+    _require_cpu(hi, "rmi_bucket")
+    return rmi.rmi_bucket_plain(params, hi, lo, n_buckets)
+
+
+def sort_rows(
+    hi: torch.Tensor, lo: torch.Tensor, val: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Row-wise ``(hi, lo, val)``-ascending sort.  Rows are padded to a
+    power-of-two width with SENTINEL keys and max-val payloads, which
+    lose every tiebreak against real data, and sliced back after."""
+    r, c = hi.shape
+    c_pow2 = 1 << (c - 1).bit_length()
+    if c_pow2 != c:
+        pad = (0, c_pow2 - c)
+        hi = torch.nn.functional.pad(hi, pad, value=SENTINEL)
+        lo = torch.nn.functional.pad(lo, pad, value=SENTINEL)
+        val = torch.nn.functional.pad(val, pad, value=_INT32_MAX)
+    if hi.is_cuda:
+        sort_rows.launches += 1
+        out = bitonic.sort_rows_cuda(
+            hi.contiguous(), lo.contiguous(), val.contiguous()
+        )
+    else:
+        _require_cpu(hi, "sort_rows")
+        out = bitonic.sort_rows_plain(hi, lo, val)
+    return tuple(t[:, :c] for t in out)
+
+
+KERNEL_WRAPPERS = (encode_keys, rmi_bucket, sort_rows)
+
+
+def reset_launches() -> None:
+    for fn in KERNEL_WRAPPERS:
+        fn.launches = 0
+
+
+reset_launches()
