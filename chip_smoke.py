@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card and check it.
+"""Drive the PyTorch port's main path and its serving path on one CUDA
+card and check them.
 
 Run from the repository root, with no arguments:
 
@@ -7,18 +8,28 @@ Run from the repository root, with no arguments:
 
 Phases, one line each (any failure exits non-zero):
 
-1. build   — compile the encode, RMI and bitonic kernels from
+1. build   — compile the encode, RMI, bitonic and histogram kernels from
    ``src/repro_torch/csrc`` (nvcc, sm_90a) and load them;
 2. kernels — each kernel against its plain PyTorch version on the card,
-   bit for bit, at the shapes the main path gives it: encode at
+   bit for bit, at the shapes the paths give it: encode at
    (1,441,792, 8); RMI at 2**20 buckets with 25,000 and 65,536 leaves on
-   uniform and skewed keys; bitonic at (8192, 1024) — the batch the
+   uniform and skewed keys, and at the serving shape (10,000,000 buckets,
+   batches of 64 and 4096 keys); bitonic at (8192, 1024) — the batch the
    256 MB default budget produces on a 1 GB file (15 partitions of
-   ~667k records, two per batch, padded to 1,441,792 slots);
-3. main    — ``repro_torch.core.external.sort_file`` under the default
-   ``SortConfig()`` (device ``cuda``) on a 1 GB skewed gensort file
-   (10M records), validated, with every kernel's launch count > 0;
-4. bytes   — a 1M-record uniform file sorted on the card has the same
+   ~667k records, two per batch, padded to 1,441,792 slots); histogram
+   at (1,441,792 ids, 8192 bins) and (1,441,792 ids, 2**20 bins), with
+   out-of-range and all-equal ids;
+3. main    — ``repro_torch.core.external.sort_file`` under
+   ``SortConfig(manifest=True)`` (device ``cuda``) on a 1 GB skewed
+   gensort file (10M records), validated, with every kernel of the sort
+   launched, and its manifest loaded back;
+4. serve   — ``QueryServer`` under the default ``ServeConfig()`` over
+   that file: 10,000 point queries (half hits) and 200 range scans of
+   1,000 records, every answer held against a NumPy ``searchsorted``
+   oracle, the RMI kernel launched while serving; then 4,096 of the
+   points and the ranges through ``QueryEngine`` for its phase seconds, and
+   ``repro_torch.launch.query`` end to end at 200,000 records;
+5. bytes   — a 1M-record uniform file sorted on the card has the same
    sha256 as the port's host-executor output.
 
 It then prints one JSON line describing each kernel (times from CUDA
@@ -29,6 +40,7 @@ without the repository beside it, it exits non-zero and prints no
 result.
 """
 
+import asyncio
 import hashlib
 import json
 import os
@@ -44,6 +56,14 @@ NON_TENSOR_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 MAIN_RECORDS = 10_000_000
 BATCH = 1_441_792  # pad_target of two ~667k-record partitions
 IDENTITY_RECORDS = 1_000_000
+HIST_BINS = (8192, 1 << 20)  # the grid's rows per batch; fused.Q_RES
+# 10,000 points, not 20,000: each hit costs 24-38 ms of host time (this
+# script, beside an H100 80GB HBM3 at 700 W), because a 1 GB file's
+# ~67 MB partitions exceed the default 64 MB block cache, whose bypass
+# copies the whole partition per fetch
+SERVE_POINTS, SERVE_RANGES, RANGE_RECORDS = 10_000, 200, 1_000
+ENGINE_POINTS = 4096
+QUERY_RECORDS = 200_000
 
 
 def log(msg: str) -> None:
@@ -248,7 +268,222 @@ def phase_kernels(torch, dev) -> dict:
         f"(max row fill {int(counts.max())}); kernel {r['ms']:.4f} ms, plain "
         f"{r['plain_ms']:.4f} ms, torch.sort {r['library_ms']:.4f} ms, "
         f"bound {b_ms:.4f} ms")
+
+    # -- RMI at the serving shape: rows of the 10M-record sorted file ------
+    ft, ut = model_main.kernel_tables
+    for b in (64, 4096):
+        hi, lo = encode.encode_cuda(
+            torch.from_numpy(keys_np["skewed"][:b, :8].copy()).to(dev)
+        )
+        got = rmi.rmi_bucket_cuda(model_main, hi, lo, MAIN_RECORDS)
+        want = rmi.rmi_bucket_plain(model_main, hi, lo, MAIN_RECORDS)
+        torch.cuda.synchronize()
+        err = max_abs_err(torch, [got], [want])
+        require(err == 0, f"RMI kernel (serving, {b} keys) differs by {err}")
+        launch = raw_launch(
+            torch, "repro_rmi_bucket", hi, lo, b,
+            int(model_main.min_hi), int(model_main.min_lo),
+            float(model_main.inv_range), float(model_main.root_slope),
+            float(model_main.root_intercept), MAIN_RECORDS, ft, ut,
+            model_main.n_leaf, got,
+        )
+        # a batch touches at most one 36-byte leaf row a key
+        b_ms, _ = bound(b * (8 + 8 + 4) + min(b, model_main.n_leaf) * 36, 0)
+        log(f"kernels: rmi serving shape ({b} keys, {MAIN_RECORDS} buckets) "
+            f"bit-equal; kernel {cuda_ms(torch, launch):.4f} ms (warm L2 "
+            f"{cuda_ms(torch, launch, cold=False):.4f} ms), plain "
+            f"{cuda_ms(torch, lambda: rmi.rmi_bucket_plain(model_main, hi, lo, MAIN_RECORDS), reps=5):.4f} ms, "
+            f"bound {b_ms:.6f} ms")
+
+    # -- histogram: the routing histogram of a main-path batch -------------
+    from repro_torch.kernels import histogram
+
+    hi, lo = encode.encode_cuda(
+        torch.from_numpy(keys_np["skewed"][:, :8].copy()).to(dev)
+    )
+    max_bins = histogram.shared_max_bins()
+    rng = np.random.default_rng(4)
+    hist_err = 0
+    for n_bins in HIST_BINS:
+        uniform = rng.integers(0, n_bins, size=n, dtype=np.int32)
+        mixed = uniform.copy()
+        bad = rng.choice(n, size=n // 5, replace=False)
+        mixed[bad] = rng.choice(
+            np.array([-1, -9, n_bins, 2**31 - 1], np.int32), size=bad.size
+        )
+        cases = {
+            # the ids the batch's keys route to at n_bins buckets
+            "routed": rmi.rmi_bucket_cuda(model_main, hi, lo, n_bins),
+            "uniform": torch.from_numpy(uniform).to(dev),
+            "out_of_range": torch.from_numpy(mixed).to(dev),
+            "equal": torch.full((n,), n_bins // 3, dtype=torch.int32,
+                                device=dev),
+        }
+        strategy = "shared" if n_bins <= max_bins else "global"
+        for name, ids in cases.items():
+            got = histogram.histogram_cuda(ids, n_bins)
+            want = histogram.histogram_plain(ids, n_bins)
+            torch.cuda.synchronize()
+            err = max_abs_err(torch, [got], [want])
+            require(err == 0, f"histogram kernel ({n_bins} bins, {name}) "
+                              f"differs from its plain version by {err}")
+            in_range = int(((ids >= 0) & (ids < n_bins)).sum())
+            require(int(got.sum()) == in_range,
+                    f"histogram ({n_bins}, {name}) counted out-of-range ids")
+            hist_err = max(hist_err, err)
+            out = torch.empty(n_bins, dtype=torch.int32, device=dev)
+            ms = cuda_ms(torch, raw_launch(
+                torch, "repro_histogram", ids, n, n_bins, out
+            ))
+            b_ms, b_by = bound(n * 4 + n_bins * 4, n)
+            line = (f"kernels: histogram ({n}, {n_bins}) {name} bit-equal "
+                    f"({strategy}); kernel {ms:.4f} ms, bound {b_ms:.4f} ms")
+            if name == "routed":
+                lib = torch.bincount(ids, minlength=n_bins)
+                require(torch.equal(lib.to(torch.int32), got),
+                        "torch.bincount disagrees with the kernel")
+                entry = dict(
+                    name="bucket_histogram", route="cuda",
+                    source=histogram.SOURCE,
+                    replaces="src/repro/kernels/histogram.py:33",
+                    ms=ms,
+                    plain_ms=cuda_ms(
+                        torch,
+                        lambda: histogram.histogram_plain(ids, n_bins),
+                        reps=10,
+                    ),
+                    bound_ms=b_ms, bound_by=b_by,
+                    library_ms=cuda_ms(
+                        torch,
+                        lambda: torch.bincount(ids, minlength=n_bins),
+                        reps=10,
+                    ),
+                )
+                line += (f", plain {entry['plain_ms']:.4f} ms, torch.bincount"
+                         f" {entry['library_ms']:.4f} ms")
+                if n_bins == HIST_BINS[0]:
+                    results["histogram"] = entry
+            log(line)
+    results["histogram"]["max_abs_err"] = hist_err
     return results
+
+
+def phase_serve(torch, path: str, tmp: str) -> None:
+    """Serve the sorted 1 GB file on the card and hold every answer
+    against a NumPy oracle over the file's keys."""
+    import numpy as np
+
+    from repro_torch.core.config import ServeConfig
+    from repro_torch.data import gensort
+    from repro_torch.kernels import ops
+    from repro_torch.launch import query
+    from repro_torch.serve.index import SortedFileIndex
+    from repro_torch.serve.query_engine import QueryEngine
+    from repro_torch.serve.server import QueryServer
+
+    cfg = ServeConfig()
+    index = SortedFileIndex.open(path, device=cfg.device)
+    require(index.device.type == "cuda", f"index on {index.device}")
+    m = index.manifest
+    points, ranges = query.make_workload(
+        index, SERVE_POINTS, SERVE_RANGES, RANGE_RECORDS, seed=0
+    )
+    recs = gensort.read_records(path)
+    keys = np.ascontiguousarray(recs[:, : index.key_width]).view("S10")
+    keys = keys.reshape(-1)
+    q = np.ascontiguousarray(points).view("S10").reshape(-1)
+    rows = np.searchsorted(keys, q, side="left")
+    found = (rows < index.n) & (keys[np.minimum(rows, index.n - 1)] == q)
+
+    async def drive():
+        server = await QueryServer(index, cfg, own_indexes=False).start()
+        t0 = time.perf_counter()
+        answers, scans = [], []
+        # waves of queue_bound requests: admission never sheds
+        for i in range(0, len(q), cfg.queue_bound):
+            answers += await asyncio.gather(*[
+                server.point(k.tobytes()) for k in points[i : i + cfg.queue_bound]
+            ])
+        for i in range(0, len(ranges), cfg.queue_bound):
+            scans += await asyncio.gather(*[
+                server.range_scan(lo, hi)
+                for lo, hi in ranges[i : i + cfg.queue_bound]
+            ])
+        wall = time.perf_counter() - t0
+        await server.stop()
+        return answers, scans, wall, server.stats
+
+    prof = start_device_trace(torch)
+    ops.reset_launches()
+    answers, scans, wall, sstats = asyncio.run(drive())
+    torch.cuda.synchronize()
+    launches = {f.__name__: f.launches for f in ops.KERNEL_WRAPPERS}
+    if prof is not None:
+        prof.__exit__(None, None, None)
+    wrong = [
+        i for i, r in enumerate(answers)
+        if not r["ok"] or r["found"] != bool(found[i])
+        or r["record"] != (recs[rows[i]].tobytes() if found[i] else None)
+    ]
+    require(not wrong, f"{len(wrong)} point answers differ from the oracle "
+                       f"(first {answers[wrong[0]] if wrong else None})")
+    spans = [
+        (int(np.searchsorted(keys, np.bytes_(lo), side="left")),
+         int(np.searchsorted(keys, np.bytes_(hi), side="right")))
+        for lo, hi in ranges
+    ]
+    bad = [
+        i for i, (r, (a, b)) in enumerate(zip(scans, spans))
+        if not r["ok"] or r["count"] != b - a or r["data"] != recs[a:b].tobytes()
+    ]
+    require(not bad, f"{len(bad)} range answers differ from the oracle")
+    require(launches["rmi_bucket"] > 0, "serving never launched the RMI kernel")
+    require(index.observed_err_lo <= m.err_lo
+            and index.observed_err_hi <= m.err_hi,
+            f"observed error -{index.observed_err_lo}/+"
+            f"{index.observed_err_hi} outside the band -{m.err_lo}/+{m.err_hi}")
+    n_q = len(answers) + len(scans)
+    log(f"serve: QueryServer {len(answers)} points ({int(found.sum())} hits) "
+        f"+ {len(scans)} ranges of {RANGE_RECORDS} records, all ok and equal "
+        f"to the oracle; {n_q / wall:.1f} q/s over {wall:.3f} s, p50 "
+        f"{sstats.latency_ms(50):.3f} ms p99 {sstats.latency_ms(99):.3f} ms, "
+        f"{sstats.n_batches} batches (occupancy {sstats.batch_occupancy:.4f}), "
+        f"band hits {index.band_hits}, fallbacks {index.fallbacks}, error "
+        f"band -{m.err_lo}/+{m.err_hi} (observed -{index.observed_err_lo}/+"
+        f"{index.observed_err_hi}), launches {launches}")
+    if prof is None:
+        log("serve: device busy share not measured")
+    else:
+        busy, _ = device_time(prof)
+        log(f"serve: device busy {busy * 1e3:.3f} ms of {wall:.3f} s wall = "
+            f"{busy / wall:.6%} (torch.profiler)")
+
+    # the first ENGINE_POINTS of the workload through the engine, for its
+    # predict/search/scan seconds
+    with QueryEngine(index) as eng:
+        for i in range(0, min(ENGINE_POINTS, len(q)), cfg.max_batch):
+            _, r, f = eng.point(points[i : i + cfg.max_batch])
+            require((r == rows[i : i + cfg.max_batch]).all()
+                    and (f == found[i : i + cfg.max_batch]).all(),
+                    "QueryEngine point answers differ from the oracle")
+        eng.range(ranges)
+    est = eng.stats
+    phases = {k: round(v, 4) for k, v in sorted(est.phase_seconds.items())}
+    log(f"serve: QueryEngine batches of {cfg.max_batch}: {est.summary()}; "
+        f"phase seconds {json.dumps(phases)}")
+    index.close()
+
+    # the launcher end to end: sort on the card, then serve
+    ops.reset_launches()
+    qstats = query.main([
+        "--records", str(QUERY_RECORDS), "--skewed", "--points", "2000",
+        "--ranges", "20", "--workdir", os.path.join(tmp, "query"),
+    ])
+    require(qstats.n_point == 2000 and qstats.n_hits >= 1000,
+            f"launch.query served {qstats.summary()}")
+    require(ops.rmi_bucket.launches > 0 and ops.encode_keys.launches > 0,
+            "launch.query did not run the kernels")
+    log(f"serve: launch.query {QUERY_RECORDS} records: {qstats.summary()}")
 
 
 def checksum_file(validate, gensort, path: str) -> int:
@@ -305,7 +540,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     try:
-        from repro_torch.core import external, validate
+        from repro_torch.core import external, manifest, validate
         from repro_torch.core.config import SortConfig
         from repro_torch.data import gensort
         from repro_torch.kernels import build, ops
@@ -336,7 +571,7 @@ def main() -> int:
             f"{time.perf_counter() - t0:.1f} s")
         prof = start_device_trace(torch)
         ops.reset_launches()
-        stats = external.sort_file(inp, out, config=SortConfig())
+        stats = external.sort_file(inp, out, config=SortConfig(manifest=True))
         torch.cuda.synchronize()
         launches = {f.__name__: f.launches for f in ops.KERNEL_WRAPPERS}
         if prof is not None:
@@ -344,8 +579,14 @@ def main() -> int:
         res = validate.validate_file(out, refsum, MAIN_RECORDS)
         require(res["ok"], f"1 GB sort failed validation: {res}")
         require(stats.executor == "batched", f"executor {stats.executor}")
-        for name, count in launches.items():
-            require(count > 0, f"{name} was never launched on the main path")
+        for name in ("encode_keys", "rmi_bucket", "sort_rows"):
+            require(launches[name] > 0,
+                    f"{name} was never launched on the main path")
+        m = manifest.load(stats.manifest_path)
+        require(m.n_records == MAIN_RECORDS
+                and int(m.part_counts.sum()) == MAIN_RECORDS
+                and m.model_hash == manifest.model_hash(m.model),
+                "the 1 GB sort's manifest does not load back")
         phases = {k: round(v, 3) for k, v in stats.phase_seconds.items()}
         walls = {k: round(v, 3) for k, v in stats.phase_wall_seconds.items()}
         log(f"main: sort_file 1 GB ok in {stats.wall_seconds:.2f} s = "
@@ -355,6 +596,8 @@ def main() -> int:
             f"batch_occupancy {stats.batch_occupancy:.4f}, "
             f"fallbacks {stats.fallbacks}, shapes {stats.jit_compiles}, "
             f"launches {launches}")
+        log(f"main: manifest {stats.manifest_path} loaded back: "
+            f"{m.n_partitions} partitions, error band -{m.err_lo}/+{m.err_hi}")
         log(f"main: phase busy seconds {json.dumps(phases)}")
         log(f"main: phase wall seconds {json.dumps(walls)}")
         if prof is None:
@@ -365,13 +608,17 @@ def main() -> int:
                 f"wall = {busy / stats.wall_seconds:.4%} (torch.profiler)")
             for sec, name, count in top:
                 log(f"main:   {sec * 1e3:9.3f} ms  x{count:<4d} {name[:90]}")
-        for name in ("encode_keys", "rmi_bucket", "sort_rows"):
-            key = {"encode_keys": "encode"}.get(name, name)
+        for key, name in (("encode", "encode_keys"), ("rmi_bucket", "rmi_bucket"),
+                          ("sort_rows", "sort_rows"),
+                          ("histogram", "bucket_histogram")):
             results[key]["launches"] = launches[name]
         os.unlink(inp)
+
+        # 4. serve the sorted file
+        phase_serve(torch, out, tmp)
         os.unlink(out)
 
-        # 4. byte identity: the card's grid path == the host executor
+        # 5. byte identity: the card's grid path == the host executor
         inp = os.path.join(tmp, "uniform.bin")
         gensort.write_file(inp, IDENTITY_RECORDS, seed=7)
         refsum = checksum_file(validate, gensort, inp)
@@ -392,7 +639,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: results[n][k] for k in keys}
-               for n in ("encode", "rmi_bucket", "sort_rows")]
+               for n in ("encode", "rmi_bucket", "sort_rows", "histogram")]
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

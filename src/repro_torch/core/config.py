@@ -1,4 +1,4 @@
-"""The public configuration surface of the port (port of the sort half of
+"""The public configuration surface of the port (port of
 ``src/repro/core/config.py``; DESIGN.md §14).
 
 * :class:`SortConfig` — one file-to-file sort, with the reference's
@@ -6,9 +6,16 @@
   entry points run on the card unless the caller asks for ``"cpu"``.
 * :class:`ExecutorConfig` — the sort-executor seam
   (``core/executor.make_executor``).
+* :class:`ServeConfig` — the query server (``serve/server.QueryServer``),
+  with the reference's fields plus ``device``, where the served
+  indexes predict (``"cuda"`` by default).
 
 Bare legacy keywords to ``sort_file`` still work through
 :func:`coerce_sort_config` (one ``DeprecationWarning`` per process).
+The launchers (``launch/query.py``, ``launch/serve.py``) build their
+argument parsers from the same dataclasses with
+:func:`add_sort_cli_args` / :func:`add_serve_cli_args` and read them
+back with :func:`sort_config_from_args` / :func:`serve_config_from_args`.
 """
 
 from __future__ import annotations
@@ -109,3 +116,120 @@ class ExecutorConfig:
 
     def replace(self, **overrides) -> "ExecutorConfig":
         return dataclasses.replace(self, **overrides)
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """Knobs of the continuous-batching query server (DESIGN.md §14).
+
+    A batch dispatches when ``max_batch`` requests have coalesced OR the
+    oldest has waited ``max_wait_ms``; submissions beyond ``queue_bound``
+    are shed with a typed ``Overloaded``.  ``cache_bytes`` sizes the LRU
+    partition-block cache (0 disables).  Transport: ``socket_path``
+    serves a unix socket, otherwise ``host:port`` TCP (port 0 =
+    ephemeral).  ``device`` is where the indexes predict positions: on
+    ``"cuda"`` always through the RMI kernel; on ``"cpu"``
+    ``use_kernels`` picks the kernel's plain version over the NumPy
+    float64 predictor.
+    """
+
+    max_batch: int = 64
+    max_wait_ms: float = 2.0
+    queue_bound: int = 1024
+    cache_bytes: int = 64 << 20
+    use_kernels: bool = False
+    host: str = "127.0.0.1"
+    port: int = 0
+    socket_path: "str | None" = None
+    drain_timeout_s: float = 30.0
+    device: str = "cuda"
+
+    def replace(self, **overrides) -> "ServeConfig":
+        return dataclasses.replace(self, **overrides)
+
+
+def _add_device_arg(ap, default: str) -> None:
+    """One ``--device`` flag, shared by the sort and serve knobs of a
+    launcher that takes both."""
+    if "--device" not in ap._option_string_actions:
+        ap.add_argument("--device", default=default, choices=("cuda", "cpu"),
+                        help="where the sort and the index run")
+
+
+def add_sort_cli_args(ap) -> None:
+    """Sort knobs shared by every launcher, derived from SortConfig
+    defaults — add once, materialize with sort_config_from_args."""
+    d = SortConfig()
+    ap.add_argument("--budget-mb", type=int,
+                    default=d.memory_budget_bytes >> 20,
+                    help="memory budget for sorts (MB)")
+    ap.add_argument("--readers", type=int, default=d.n_readers,
+                    help="striped reader threads (paper's r)")
+    ap.add_argument("--writers", type=int, default=d.n_writers,
+                    help="positioned-write pool width "
+                         "(0: planner auto-tunes)")
+    ap.add_argument("--partitions", type=int, default=d.n_partitions,
+                    help="partition count (0: planner auto-tunes)")
+    ap.add_argument("--sort-executor", default=d.executor,
+                    choices=("auto", "host", "batched"),
+                    help="sort-executor seam selection")
+    ap.add_argument("--partitioner", default=d.partitioner,
+                    choices=("auto", "model", "splitter"),
+                    help="pre-sort planner routing path")
+    ap.add_argument("--workdir", default=d.workdir,
+                    help="spill directory (default: a tempdir)")
+    _add_device_arg(ap, d.device)
+
+
+def sort_config_from_args(args, **overrides) -> SortConfig:
+    """SortConfig from the add_sort_cli_args namespace (+ call-site
+    overrides, e.g. fmt= or manifest=)."""
+    return SortConfig(
+        memory_budget_bytes=args.budget_mb << 20,
+        n_readers=args.readers,
+        n_writers=getattr(args, "writers", 0),
+        n_partitions=args.partitions,
+        executor=args.sort_executor,
+        partitioner=args.partitioner,
+        workdir=args.workdir,
+        device=args.device,
+    ).replace(**overrides)
+
+
+def add_serve_cli_args(ap) -> None:
+    """Server knobs, derived from ServeConfig defaults."""
+    d = ServeConfig()
+    ap.add_argument("--max-batch", type=int, default=d.max_batch,
+                    help="coalescing window: max queries per dispatch")
+    ap.add_argument("--max-wait-ms", type=float, default=d.max_wait_ms,
+                    help="coalescing window: max ms the oldest waits")
+    ap.add_argument("--queue-bound", type=int, default=d.queue_bound,
+                    help="admission queue depth; beyond it requests shed")
+    ap.add_argument("--cache-mb", type=int, default=d.cache_bytes >> 20,
+                    help="LRU partition-block cache budget (0 disables)")
+    ap.add_argument("--use-kernels", action="store_true",
+                    help="on the CPU, predict through the RMI kernel's "
+                         "plain version (a card always runs the kernel)")
+    ap.add_argument("--host", default=d.host)
+    ap.add_argument("--port", type=int, default=d.port,
+                    help="TCP port (0: ephemeral; ignored with --socket)")
+    ap.add_argument("--socket", default=d.socket_path,
+                    help="serve a unix socket at this path instead of TCP")
+    ap.add_argument("--drain-timeout", type=float, default=d.drain_timeout_s,
+                    help="seconds to wait for in-flight work on shutdown")
+    _add_device_arg(ap, d.device)
+
+
+def serve_config_from_args(args, **overrides) -> ServeConfig:
+    return ServeConfig(
+        max_batch=args.max_batch,
+        max_wait_ms=args.max_wait_ms,
+        queue_bound=args.queue_bound,
+        cache_bytes=args.cache_mb << 20,
+        use_kernels=args.use_kernels,
+        host=args.host,
+        port=args.port,
+        socket_path=args.socket,
+        drain_timeout_s=args.drain_timeout,
+        device=args.device,
+    ).replace(**overrides)

@@ -33,8 +33,10 @@ def sort_file(
     graph with the CUDA kernels; on the CPU it resolves as the
     reference does on its CPU backend.  Output is byte-identical across
     devices, executors, reader counts and writer widths.
-    ``manifest=True`` and ``model_cache`` are not ported yet and raise
-    ``NotImplementedError``.
+    ``manifest=True`` also writes ``<output>.manifest.npz``, the learned
+    index that ``repro_torch.serve.index.SortedFileIndex`` serves; its
+    layout is the reference's, so either package loads it.
+    ``model_cache`` is not ported yet and raises ``NotImplementedError``.
     """
     cfg = coerce_sort_config(config, overrides)
     return run_pipeline(input_path, output_path, cfg.to_pipeline())

@@ -76,6 +76,31 @@ class RecordBlock:
     def record(self, i: int) -> bytes:
         return self.data[self.offsets[i] : self.offsets[i + 1]].tobytes()
 
+    def close(self) -> None:
+        """Release the backing mmap (no-op for owned in-memory blocks).
+
+        Long-lived servers (``serve/index.SortedFileIndex``) reopen
+        manifests on compaction; without this the old file's pages and
+        descriptor lived until GC.  Every array field is replaced by an
+        empty placeholder first so the mmap's buffer has no exports
+        left; a still-borrowed view elsewhere degrades to GC-time
+        release rather than an error."""
+        data, keys = self.data, self.keys
+        kw = keys.shape[1] if keys.ndim == 2 else 0
+        self.data = np.empty(0, np.uint8)
+        self.offsets = np.zeros(1, np.int64)
+        self.keys = np.empty((0, kw), np.uint8)
+        mm, arr = None, data
+        while arr is not None and mm is None:  # walk the view chain
+            mm = getattr(arr, "_mmap", None)
+            arr = getattr(arr, "base", None)
+        del data, keys, arr
+        if mm is not None:
+            try:
+                mm.close()
+            except BufferError:  # a caller still holds a view
+                pass
+
     def slice_bytes(self, lo: int, hi: int) -> bytes:
         """Raw bytes of records ``[lo, hi)`` — contiguous by construction."""
         return self.data[self.offsets[lo] : self.offsets[hi]].tobytes()
@@ -248,6 +273,16 @@ class FixedFormat:
             sel = np.sort(rng.choice(out.shape[0], take, replace=False))
             out = out[sel]
         return out
+
+    # -- manifest serialization ---------------------------------------
+
+    def manifest_fields(self) -> dict:
+        return {
+            "fmt_kind": np.array(self.kind),
+            "fmt_record_bytes": np.int64(self.record_bytes),
+            "fmt_key_bytes": np.int64(self.key_bytes),
+        }
+
 
 # ---------------------------------------------------------------------------
 # LineFormat
@@ -474,8 +509,37 @@ class LineFormat:
             out = out[sel]
         return out
 
+    # -- manifest serialization ---------------------------------------
+
+    def manifest_fields(self) -> dict:
+        return {
+            "fmt_kind": np.array(self.kind),
+            "fmt_max_key_bytes": np.int64(self.max_key_bytes),
+            "fmt_delimiter": np.frombuffer(self.delimiter, dtype=np.uint8),
+        }
+
+
 # The union the pipeline accepts wherever a ``fmt`` parameter appears.
 RecordFormat = Union[FixedFormat, LineFormat]
 
 # Default format: the gensort layout every historical entry point assumes.
 GENSORT = FixedFormat(record_bytes=100, key_bytes=10)
+
+
+def from_manifest_fields(z) -> "FixedFormat | LineFormat":
+    """Rebuild a format from manifest npz fields (v2+); v1 manifests
+    carry no fields and default to the gensort layout."""
+    if "fmt_kind" not in getattr(z, "files", z):
+        return GENSORT
+    kind = str(np.asarray(z["fmt_kind"]))
+    if kind == "fixed":
+        return FixedFormat(
+            record_bytes=int(z["fmt_record_bytes"]),
+            key_bytes=int(z["fmt_key_bytes"]),
+        )
+    if kind == "line":
+        return LineFormat(
+            max_key_bytes=int(z["fmt_max_key_bytes"]),
+            delimiter=np.asarray(z["fmt_delimiter"], dtype=np.uint8).tobytes(),
+        )
+    raise ValueError(f"unknown record format kind {kind!r}")

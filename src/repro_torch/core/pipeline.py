@@ -12,8 +12,12 @@ the ``repro_torch.core.executor.SortExecutor`` seam on the configured
 Output is byte-identical for any ``n_readers``, any writer width and
 any executor — ties between equal keys stay in input order everywhere.
 
-Not ported yet: the serving manifest (``emit_manifest``) and the
-warm-start model cache (``model_cache``); asking for either raises
+With ``emit_manifest`` the run ends by writing
+``<output>.manifest.npz`` (``repro_torch.core.manifest``), the learned
+index that ``repro_torch.serve`` answers queries from; an empty input
+sorted under a pre-trained model gets one too, with zero counts, so it
+stays aligned with its co-partitioned siblings.  Not ported yet: the
+warm-start model cache (``model_cache``); asking for it raises
 ``NotImplementedError``.
 """
 
@@ -29,6 +33,7 @@ import threading
 
 import numpy as np
 
+from repro_torch.core import manifest as manifest_lib
 from repro_torch.core import planner, rmi
 from repro_torch.core.executor import make_executor, resolve_device
 from repro_torch.core.format import GENSORT
@@ -95,7 +100,7 @@ class SortPipelineConfig:
     stripes_per_reader: int = 4  # work-stealing granularity
     flush_bytes: int = 0  # spill threshold per fragment; 0 -> auto-tuned
     queue_depth: int = 2  # bound on each inter-stage queue
-    # emit <output>.manifest.npz for query serving: not ported yet
+    # emit <output>.manifest.npz for query serving (repro_torch.serve)
     emit_manifest: bool = False
     # record layout (core/format.py); None -> the gensort 100/10 layout
     fmt: "object | None" = None
@@ -180,8 +185,6 @@ def run_pipeline(
         raise ValueError(
             f"n_writers must be >= 0 (0 = auto), got {cfg.n_writers}"
         )
-    if cfg.emit_manifest:
-        raise NotImplementedError("the serving manifest is not ported yet")
     if cfg.model_cache is not None:
         raise NotImplementedError("the model cache is not ported yet")
     device = resolve_device(cfg.device)
@@ -212,6 +215,12 @@ def run_pipeline(
     if out_bytes == 0:  # nothing to sort; still produce the (empty) output
         with clock.timer("setup"):
             open(output_path, "wb").close()
+        # a shared-model sort must stay co-partition-aligned even when
+        # empty: emit the manifest with n_partitions zero counts.  Without
+        # a pre-trained model there is nothing to index — no manifest.
+        if cfg.emit_manifest and cfg.model is not None:
+            stats.partition_counts = [0] * n_partitions
+            _emit_manifest(clock, stats, cfg.model, output_path, fmt)
         clock.finish(stats)
         return stats
 
@@ -392,5 +401,18 @@ def run_pipeline(
     stats.fallbacks += executor.fallbacks
     stats.spill_disk_bytes = spill_ram.disk_bytes
 
+    if cfg.emit_manifest:
+        _emit_manifest(clock, stats, model, output_path, fmt)
     clock.finish(stats)
     return stats
+
+
+def _emit_manifest(clock, stats, model, output_path, fmt) -> None:
+    """Write ``<output>.manifest.npz`` under the ``manifest`` phase."""
+    with clock.timer("manifest"):
+        m = manifest_lib.build(
+            model, stats.partition_counts, output_path, fmt=fmt
+        )
+        mpath = manifest_lib.manifest_path(output_path)
+        manifest_lib.save(m, mpath)
+        stats.manifest_path = mpath

@@ -1,11 +1,13 @@
-"""Instrumentation for the pipelined runtime: ``SortStats`` + ``PhaseClock``.
+"""Instrumentation: ``SortStats`` + ``PhaseClock`` for the pipelined
+runtime, ``LatencyReservoir`` + ``ServeStats`` for query serving.
 
 Copy of ``src/repro/core/stages/stats.py`` for the PyTorch port.
 
 ``SortStats`` is the per-sort instrumentation record every entry point
 returns; ``PhaseClock`` is the thread-safe accumulator the stage workers
 share while a sort is in flight (``repro_torch.core.pipeline`` and
-``repro_torch.core.external`` re-export ``SortStats``).
+``repro_torch.core.external`` re-export ``SortStats``).  ``ServeStats``
+is its serving sibling, kept by ``repro_torch.serve.server.QueryServer``.
 """
 
 from __future__ import annotations
@@ -14,7 +16,82 @@ import dataclasses
 import threading
 import time
 
+import numpy as np
+
 from repro_torch.data import gensort
+
+
+class LatencyReservoir:
+    """Fixed-size log-bucketed latency sketch.
+
+    ``QueryStats.latencies_s`` was an unbounded Python list — a memory
+    leak for a long-lived server appending one float per query.  This
+    replacement holds a constant ~2 KB: geometric buckets spanning
+    100 ns .. 100 s at ``PER_DECADE`` buckets per decade (each bucket is
+    a ~10% latency band, so any percentile is exact to within ±1
+    bucket), plus exact min/max for the under/overflow tails.
+
+    The list API the engine used (``append``/``extend``/``len``/
+    truthiness) is preserved, so call sites did not change.
+    """
+
+    LO = 1e-7
+    HI = 1e2
+    PER_DECADE = 24
+    _DECADES = 9  # log10(HI / LO)
+    _N = _DECADES * PER_DECADE + 2  # + underflow/overflow buckets
+
+    def __init__(self):
+        self.counts = np.zeros(self._N, dtype=np.int64)
+        self.n = 0
+        self.min_s = float("inf")
+        self.max_s = 0.0
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __bool__(self) -> bool:
+        return self.n > 0
+
+    def _bucket(self, values: np.ndarray) -> np.ndarray:
+        safe = np.maximum(values, 1e-30)
+        idx = np.floor(
+            (np.log10(safe) - np.log10(self.LO)) * self.PER_DECADE
+        ).astype(np.int64) + 1
+        return np.clip(idx, 0, self._N - 1)
+
+    def append(self, dt: float) -> None:
+        self.extend(np.asarray([dt], dtype=np.float64))
+
+    def extend(self, values) -> None:
+        values = np.asarray(values, dtype=np.float64)
+        if values.size == 0:
+            return
+        np.add.at(self.counts, self._bucket(values), 1)
+        self.n += int(values.size)
+        self.min_s = min(self.min_s, float(values.min()))
+        self.max_s = max(self.max_s, float(values.max()))
+
+    def percentile(self, pct: float) -> float:
+        """Latency (seconds) at ``pct`` — the geometric center of the
+        bucket holding that rank (exact for the min/max tails)."""
+        if self.n == 0:
+            return 0.0
+        if pct <= 0:
+            return self.min_s
+        if pct >= 100:
+            return self.max_s
+        rank = min(max(pct / 100.0, 0.0), 1.0) * self.n
+        cum = np.cumsum(self.counts)
+        i = int(np.searchsorted(cum, max(rank, 1), side="left"))
+        if i == 0:
+            return self.min_s
+        if i >= self._N - 1:
+            return self.max_s
+        lo_edge = np.log10(self.LO) + (i - 1) / self.PER_DECADE
+        mid = 10.0 ** (lo_edge + 0.5 / self.PER_DECADE)
+        # a single-bucket population is bracketed by the exact extremes
+        return float(min(max(mid, self.min_s), self.max_s))
 
 
 @dataclasses.dataclass
@@ -183,3 +260,95 @@ class _PhaseTimer:
                 time.perf_counter(),
                 time.thread_time() - self.c0,
             )
+
+
+@dataclasses.dataclass
+class ServeStats:
+    """Instrumentation for one server lifetime — the serving sibling of
+    :class:`SortStats` (DESIGN.md §14).
+
+    Scheduler health: ``queue_depth_*`` sample the admission queue at
+    every batch formation, ``batch_occupancy`` is the mean fraction of
+    the ``max_batch`` window each dispatched batch filled, and
+    ``n_shed`` counts admission-control rejections (the typed
+    ``Overloaded`` path — under open-loop overload this climbs while
+    p99 stays bounded).  Cache health: hit/miss/eviction counters plus
+    resident bytes of the partition-block LRU.  ``latencies_s`` is the
+    bounded :class:`LatencyReservoir` over submit→complete spans.
+    """
+
+    n_point: int = 0
+    n_range: int = 0
+    n_shed: int = 0
+    n_batches: int = 0
+    batch_slot_limit: int = 0  # the scheduler's max_batch
+    batched_requests: int = 0  # requests dispatched through batches
+    queue_depth_sum: int = 0
+    queue_depth_peak: int = 0
+    cache_hits: int = 0
+    cache_misses: int = 0
+    cache_evictions: int = 0
+    cache_bytes: int = 0
+    latencies_s: LatencyReservoir = dataclasses.field(
+        default_factory=LatencyReservoir
+    )
+    wall_seconds: float = 0.0
+
+    @property
+    def n_queries(self) -> int:
+        return self.n_point + self.n_range
+
+    @property
+    def batch_occupancy(self) -> float:
+        slots = self.n_batches * self.batch_slot_limit
+        return self.batched_requests / slots if slots else 0.0
+
+    @property
+    def mean_queue_depth(self) -> float:
+        return self.queue_depth_sum / self.n_batches if self.n_batches else 0.0
+
+    @property
+    def cache_hit_rate(self) -> float:
+        total = self.cache_hits + self.cache_misses
+        return self.cache_hits / total if total else 0.0
+
+    @property
+    def qps(self) -> float:
+        return self.n_queries / max(self.wall_seconds, 1e-9)
+
+    def latency_ms(self, pct: float) -> float:
+        return self.latencies_s.percentile(pct) * 1e3
+
+    def as_dict(self) -> dict:
+        """JSON-friendly snapshot (the server's ``stats`` op and the
+        open-loop benchmark rows)."""
+        return {
+            "n_point": self.n_point,
+            "n_range": self.n_range,
+            "n_shed": self.n_shed,
+            "n_batches": self.n_batches,
+            "batch_occupancy": self.batch_occupancy,
+            "mean_queue_depth": self.mean_queue_depth,
+            "queue_depth_peak": self.queue_depth_peak,
+            "cache_hits": self.cache_hits,
+            "cache_misses": self.cache_misses,
+            "cache_evictions": self.cache_evictions,
+            "cache_bytes": self.cache_bytes,
+            "cache_hit_rate": self.cache_hit_rate,
+            "qps": self.qps,
+            "p50_ms": self.latency_ms(50),
+            "p99_ms": self.latency_ms(99),
+            "wall_seconds": self.wall_seconds,
+        }
+
+    def summary(self) -> str:
+        return (
+            f"{self.n_queries} served ({self.n_point} point / "
+            f"{self.n_range} range), {self.n_shed} shed, "
+            f"{self.n_batches} batches (occupancy "
+            f"{self.batch_occupancy:.2f}, mean depth "
+            f"{self.mean_queue_depth:.1f}, peak {self.queue_depth_peak}); "
+            f"cache {self.cache_hits}/{self.cache_hits + self.cache_misses} "
+            f"hits; p50 {self.latency_ms(50):.3f}ms "
+            f"p99 {self.latency_ms(99):.3f}ms"
+        )

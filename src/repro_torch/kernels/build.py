@@ -28,7 +28,7 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = ("encode.cu", "rmi.cu", "bitonic.cu")
+SOURCES = ("encode.cu", "rmi.cu", "bitonic.cu", "histogram.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
@@ -45,6 +45,8 @@ _SIGNATURES = {
         _I, [_P, _P, _LL, _U, _U, _F, _F, _F, _I, _P, _P, _I, _P, _P],
     ),
     "repro_sort_rows": (_I, [_P, _P, _P, _P, _P, _P, _LL, _I, _P]),
+    "repro_histogram": (_I, [_P, _LL, _I, _P, _P]),
+    "repro_histogram_shared_bins": (_I, [ctypes.POINTER(_I)]),
     "repro_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 

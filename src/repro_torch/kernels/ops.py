@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.core import rmi as rmi_lib
 from repro_torch.core.encoding import ENCODED_BYTES, SENTINEL
-from repro_torch.kernels import bitonic, encode, rmi
+from repro_torch.kernels import bitonic, encode, histogram, rmi
 
 _INT32_MAX = 2**31 - 1
 
@@ -57,6 +57,30 @@ def rmi_bucket(
     return rmi.rmi_bucket_plain(params, hi, lo, n_buckets)
 
 
+def rmi_predict_pos(
+    params: rmi_lib.RMIParams,
+    hi: torch.Tensor,
+    lo: torch.Tensor,
+    n_records: int,
+) -> torch.Tensor:
+    """Predicted row of each key in a sorted ``n_records`` file: the
+    serving hot path.  The learned index's prediction is the equi-depth
+    bucket id at ``n_buckets == n_records``, so this is the RMI kernel
+    unchanged (f32 makes the row exact below 2**24 records; above that
+    the manifest's error band absorbs the rounding)."""
+    return rmi_bucket(params, hi, lo, n_records)
+
+
+def bucket_histogram(ids: torch.Tensor, n_buckets: int) -> torch.Tensor:
+    """(n_buckets,) int32 per-bucket counts of (N,) int32 ids; ids outside
+    ``[0, n_buckets)`` never count (the reference's -1 padding)."""
+    if ids.is_cuda:
+        bucket_histogram.launches += 1
+        return histogram.histogram_cuda(ids.contiguous(), n_buckets)
+    _require_cpu(ids, "bucket_histogram")
+    return histogram.histogram_plain(ids, n_buckets)
+
+
 def sort_rows(
     hi: torch.Tensor, lo: torch.Tensor, val: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -81,7 +105,7 @@ def sort_rows(
     return tuple(t[:, :c] for t in out)
 
 
-KERNEL_WRAPPERS = (encode_keys, rmi_bucket, sort_rows)
+KERNEL_WRAPPERS = (encode_keys, rmi_bucket, sort_rows, bucket_histogram)
 
 
 def reset_launches() -> None:

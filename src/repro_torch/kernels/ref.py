@@ -21,6 +21,18 @@ def rmi_bucket_ref(
     return rmi.predict_bucket(params, hi, lo, n_buckets)
 
 
+def histogram_ref(bucket_ids: torch.Tensor, n_buckets: int) -> torch.Tensor:
+    """(n_buckets,) int32 counts.  Equal to the reference's
+    ``.at[ids].add(1)`` on in-range ids; an id outside ``[0, n_buckets)``
+    is dropped, as the reference's wrapper and kernel drop it together
+    (``.at[-1]`` alone would wrap it onto the last bucket)."""
+    ids = np.asarray(bucket_ids, dtype=np.int64)
+    ids = ids[(ids >= 0) & (ids < n_buckets)]
+    return torch.from_numpy(
+        np.bincount(ids, minlength=n_buckets).astype(np.int32)
+    )
+
+
 def sort_rows_ref(
     hi: torch.Tensor, lo: torch.Tensor, val: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

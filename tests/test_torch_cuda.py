@@ -1,6 +1,7 @@
 """The port's CUDA kernels and device path on a card: each kernel against
-its plain PyTorch version, bit for bit, and the batched executor and
-``sort_file`` on the card against the host executor's bytes.
+its plain PyTorch version, bit for bit, the batched executor and
+``sort_file`` on the card against the host executor's bytes, and a CUDA
+``SortedFileIndex`` against a CPU one.
 
 Every test needs a CUDA device (a CUDA kernel has no CPU mode) and skips
 without one; the check happens when the test runs.  This file imports
@@ -25,7 +26,14 @@ from repro_torch.core.executor import (  # noqa: E402
 )
 from repro_torch.core.format import GENSORT  # noqa: E402
 from repro_torch.data import gensort  # noqa: E402
-from repro_torch.kernels import bitonic, encode, ops, rmi  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    bitonic,
+    encode,
+    histogram,
+    ops,
+    rmi,
+)
+from repro_torch.serve.index import SortedFileIndex  # noqa: E402
 
 
 @pytest.fixture
@@ -113,6 +121,78 @@ def test_bitonic_kernel_rejects_widths(cuda):
             bitonic.sort_rows_cuda(*args)
 
 
+def _ids(n, n_buckets, kind, seed=0):
+    rng = np.random.default_rng(seed)
+    if kind == "equal":
+        ids = np.full(n, n_buckets // 3, dtype=np.int32)
+    else:
+        ids = rng.integers(0, n_buckets, size=n, dtype=np.int32)
+    if kind == "out_of_range":
+        bad = rng.choice(n, size=n // 5, replace=False)
+        ids[bad] = rng.choice(
+            np.array([-1, -9, n_buckets, 2**31 - 1], np.int32), size=bad.size
+        )
+    return torch.from_numpy(ids)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "out_of_range", "equal"])
+@pytest.mark.parametrize(
+    "n,n_buckets",
+    [(1, 1), (1000, 8), (1_441_792, 8192), (100_000, 58_000),
+     (1_441_792, 1 << 20), (5000, 100_000)],
+)
+def test_histogram_kernel_equals_plain(cuda, n, n_buckets, kind):
+    """Both strategies (shared-memory bins up to the opt-in limit, global
+    atomics beyond it), -1 and other out-of-range ids, all-equal ids."""
+    ids = _ids(n, n_buckets, kind, seed=n).to(cuda)
+    got = histogram.histogram_cuda(ids, n_buckets)
+    want = histogram.histogram_plain(ids, n_buckets)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    in_range = int(((ids >= 0) & (ids < n_buckets)).sum())
+    assert int(got.sum()) == in_range
+
+
+def test_histogram_strategy_threshold(cuda):
+    """The H100 opts a block into 227 KB of shared memory: 58,112 bins."""
+    assert histogram.shared_max_bins() == 232_448 // 4
+    with pytest.raises(ValueError):
+        histogram.histogram_cuda(torch.zeros(4, dtype=torch.int64, device=cuda), 4)
+
+
+def test_cuda_index_lookups_equal_cpu(cuda, tmp_path):
+    """A CUDA index predicts through the RMI kernel and answers as a CPU
+    index does, for hits, misses and ranges."""
+    inp, out = str(tmp_path / "in.bin"), str(tmp_path / "out.bin")
+    gensort.write_file(inp, 50_000, skewed=True, seed=2)
+    external.sort_file(inp, out, config=SortConfig(manifest=True))
+    gpu = SortedFileIndex.open(out)
+    cpu = SortedFileIndex.open(out, device="cpu")
+    rng = np.random.default_rng(0)
+    keys = np.concatenate([
+        gpu.keys_at(rng.choice(gpu.n, 500)),
+        gensort.uniform_keys(100, seed=9),
+    ])
+    ops.reset_launches()
+    for batch in (1, 64):
+        for i in range(0, keys.shape[0], batch):
+            k = keys[i : i + batch]
+            for a, b in zip(gpu.lookup(k), cpu.lookup(k, use_kernels=True)):
+                np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(
+        gpu.predict_positions(keys), cpu.predict_positions(keys, use_kernels=True)
+    )
+    assert ops.rmi_bucket.launches > 0
+    lo, hi = sorted(keys[:2].tolist())
+    assert np.array_equal(
+        gpu.range_scan(bytes(lo), bytes(hi)), cpu.range_scan(bytes(lo), bytes(hi))
+    )
+    assert gpu.observed_err_lo <= gpu.manifest.err_lo
+    assert gpu.observed_err_hi <= gpu.manifest.err_hi
+    gpu.close()
+    cpu.close()
+
+
 def test_wrappers_count_launches(cuda):
     ops.reset_launches()
     keys = torch.from_numpy(gensort.uniform_keys(4096, seed=5)).to(cuda)
@@ -125,7 +205,8 @@ def test_wrappers_count_launches(cuda):
         torch.arange(4000, dtype=torch.int32, device=cuda).reshape(40, 100),
     )
     assert h.shape == (40, 100)
-    assert [f.launches for f in ops.KERNEL_WRAPPERS] == [1, 1, 1]
+    ops.bucket_histogram(ops.rmi_bucket(model, hi, lo, 16), 16)
+    assert [f.launches for f in ops.KERNEL_WRAPPERS] == [1, 2, 1, 1]
     with pytest.raises(ValueError):
         rmi.rmi_bucket_cuda(trmi.fit(gensort.uniform_keys(64), n_leaf=4), hi, lo, 16)
 
@@ -164,7 +245,8 @@ def test_executor_on_card_matches_host(cuda, sizes, dup, kw):
     host = dict(HostSortExecutor(model).sort_iter(enumerate(blocks)))
     for i in range(len(blocks)):
         assert got[i].tobytes() == host[i].tobytes(), i
-    assert [f.launches for f in ops.KERNEL_WRAPPERS] == [ex.dispatches] * 3
+    # the histogram kernel is on no path of the sort
+    assert [f.launches for f in ops.KERNEL_WRAPPERS] == [ex.dispatches] * 3 + [0]
     assert (ex.fallbacks >= 1) == dup
 
 

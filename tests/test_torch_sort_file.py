@@ -108,26 +108,30 @@ def test_cuda_requested_without_a_card_raises(tmp_path_factory, tmp_path):
 
 
 def test_unported_features_raise(tmp_path_factory, tmp_path):
+    """The model cache is not ported yet (manifests are: see
+    tests/test_torch_manifest.py)."""
     inp, _, _ = _reference(tmp_path_factory, "uniform", "coalesced")
     cfg = SortConfig(device="cpu")
-    for kw in ({"manifest": True}, {"model_cache": object()}):
-        with pytest.raises(NotImplementedError):
-            text.sort_file(inp, str(tmp_path / "o.bin"), config=cfg, **kw)
+    with pytest.raises(NotImplementedError):
+        text.sort_file(
+            inp, str(tmp_path / "o.bin"), config=cfg, model_cache=object()
+        )
 
 
 def test_port_imports_without_jax_or_repro():
     """``repro_torch`` never imports ``jax`` or ``repro``: with both made
-    unimportable, the entry point and the kernel wrappers still load."""
+    unimportable, every module of the package still loads."""
     code = textwrap.dedent(
         """
-        import sys
+        import importlib, pkgutil, sys
         sys.modules["jax"] = None
         sys.modules["repro"] = None
-        import repro_torch.core.external
-        import repro_torch.kernels.ops
-        import repro_torch.kernels.fused
-        import repro_torch.core.validate
-        import repro_torch.data.gensort
+        import repro_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            repro_torch.__path__, "repro_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        assert "repro_torch.serve.server" in names, names
         bad = [m for m in sys.modules
                if (m == "jax" or m.startswith(("jax.", "jaxlib", "repro.")))
                and sys.modules[m] is not None]
