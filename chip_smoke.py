@@ -16,7 +16,10 @@ Phases, one line each (any failure exits non-zero):
    uniform and skewed keys, and at the serving shape (10,000,000 buckets,
    batches of 64 and 4096 keys); bitonic at (8192, 1024) — the batch the
    256 MB default budget produces on a 1 GB file (15 partitions of
-   ~667k records, two per batch, padded to 1,441,792 slots); histogram
+   ~667k records, two per batch, padded to 1,441,792 slots) — and over a
+   sweep of every width ``fused.plan_batch`` gives, at ~8.4M slots each
+   (``BITONIC_SWEEP``), on random, all-equal, SENTINEL-row, presorted
+   and reversed rows, each width timed against ``torch.sort``; histogram
    at (1,441,792 ids, 8192 bins) and (1,441,792 ids, 2**20 bins), with
    out-of-range and all-equal ids;
 3. main    — ``repro_torch.core.external.sort_file`` under
@@ -64,6 +67,10 @@ HIST_BINS = (8192, 1 << 20)  # the grid's rows per batch; fused.Q_RES
 SERVE_POINTS, SERVE_RANGES, RANGE_RECORDS = 10_000, 200, 1_000
 ENGINE_POINTS = 4096
 QUERY_RECORDS = 200_000
+# row widths fused.plan_batch gives: 512-1024 below 4.2M slots, 2048-4096
+# above, 8-256 for small batches of many segments; and the widest row
+BITONIC_SWEEP = ((16384, 512), (8192, 1024), (4096, 2048), (2048, 4096),
+                 (1_048_576, 8), (2, 16384))
 
 
 def log(msg: str) -> None:
@@ -253,7 +260,7 @@ def phase_kernels(torch, dev) -> dict:
         max_abs_err=err,
         ms=cuda_ms(torch, raw_launch(
             torch, "repro_sort_rows", hi_m, lo_m, val_m, *got,
-            n_rows, capacity,
+            n_rows, capacity, *bitonic.launch_geometry(capacity),
         )),
         plain_ms=cuda_ms(
             torch, lambda: bitonic.sort_rows_plain(hi_m, lo_m, val_m), reps=5
@@ -267,7 +274,9 @@ def phase_kernels(torch, dev) -> dict:
     log(f"kernels: sort_rows ({n_rows}, {capacity}) bit-equal "
         f"(max row fill {int(counts.max())}); kernel {r['ms']:.4f} ms, plain "
         f"{r['plain_ms']:.4f} ms, torch.sort {r['library_ms']:.4f} ms, "
-        f"bound {b_ms:.4f} ms")
+        f"bound {b_ms:.4f} ms; {bitonic.launch_geometry(capacity)}, stages "
+        f"{bitonic.stage_split(capacity)}")
+    bitonic_sweep(torch, dev)
 
     # -- RMI at the serving shape: rows of the 10M-record sorted file ------
     ft, ut = model_main.kernel_tables
@@ -366,6 +375,60 @@ def phase_kernels(torch, dev) -> dict:
             log(line)
     results["histogram"]["max_abs_err"] = hist_err
     return results
+
+
+def bitonic_sweep(torch, dev) -> None:
+    """The row sorter at every width the main path can produce, ~8.4M
+    slots each: bit-equal to its plain version on five kinds of rows,
+    and timed cold beside its bound and ``torch.sort``."""
+    from repro_torch.core import encoding
+    from repro_torch.kernels import bitonic
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    for r, c in BITONIC_SWEEP:
+        def words(high):
+            return torch.randint(0, high, (r, c), device=dev, generator=gen)
+
+        hi, lo = words(1 << 32), words(1 << 32)
+        hi[:, ::3] %= 64  # some equal hi words, so lo and val break ties
+        val = torch.randint(-(2**31), 2**31 - 1, (r, c), device=dev,
+                            generator=gen, dtype=torch.int32)
+        sorted_rows = bitonic.sort_rows_plain(hi, lo, val)
+        sentinel = [t.clone() for t in (hi, lo, val)]
+        sentinel[0][::2] = encoding.SENTINEL
+        sentinel[1][::2] = encoding.SENTINEL
+        sentinel[2][::2] = 2**31 - 1
+        kinds = {
+            "random": (hi, lo, val),
+            "equal": (torch.full_like(hi, 7), torch.full_like(lo, 11), val),
+            "sentinel_rows": tuple(sentinel),
+            "presorted": sorted_rows,
+            "reversed": tuple(t.flip(1).contiguous() for t in sorted_rows),
+        }
+        for kind, rows in kinds.items():
+            got = bitonic.sort_rows_cuda(*rows)
+            want = bitonic.sort_rows_plain(*rows)
+            torch.cuda.synchronize()
+            err = max_abs_err(torch, got, want)
+            require(err == 0, f"bitonic kernel at ({r}, {c}) on {kind} rows "
+                              f"differs from its plain version by {err}")
+        geo = bitonic.launch_geometry(c)
+        ms = cuda_ms(torch, raw_launch(
+            torch, "repro_sort_rows", hi, lo, val, *got, r, c, *geo,
+        ))
+        packed = encoding.packed_key(hi, lo)
+        lib_ms = cuda_ms(
+            torch, lambda: torch.sort(packed, dim=1, stable=True), reps=10
+        )
+        stages = (c.bit_length() - 1) * c.bit_length() // 2
+        b_ms, b_by = bound(r * c * (8 + 8 + 4) * 2, r * c // 2 * stages)
+        log(f"kernels: sort_rows sweep ({r}, {c}) bit-equal on "
+            f"{'/'.join(kinds)}; kernel {ms:.4f} ms, torch.sort "
+            f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) = "
+            f"{b_ms / ms:.1%} of bound; {geo.rows_per_block} rows x "
+            f"{geo.threads_per_row} threads x {geo.elems} slots a block, "
+            f"stages {bitonic.stage_split(c)}")
 
 
 def phase_serve(torch, path: str, tmp: str) -> None:
@@ -554,8 +617,9 @@ def main() -> int:
     info = build.build_info
     log(f"build: {'compiled' if info['compiled'] else 'loaded the cached'} "
         f"{info['path']} in {info['seconds']:.1f} s")
-    for line in build.build_info["ptxas"]:
-        log(f"build:   {line}")
+    for src, lines in info["ptxas"].items():
+        for line in lines:
+            log(f"build:   {src}: {line}")
 
     # 2. kernels
     results = phase_kernels(torch, torch.device("cuda"))

@@ -2,9 +2,13 @@
 
 Replaces ``src/repro/kernels/bitonic.py:sort_rows_pallas``.  The CUDA
 source is ``csrc/bitonic.cu``; its note says what bounds the kernel
-(memory at the main path's widths: 20 bytes a slot read and written
-once, every stage on shared memory) and how the design meets it (one
-block per row, the row packed into 12 bytes a slot of shared memory).
+(device memory: 40 bytes a slot read and written once) and how the
+design meets it: each thread holds E slots of its row in registers, so
+a compare-exchange stage runs in registers when its partner is in the
+same thread, by warp shuffles when it is in the same warp, and through
+shared memory only when it is in another warp.  :func:`launch_geometry`
+chooses the layout for a row width; :func:`stage_split` counts where
+the stages run.
 
 The order is strict on ``(hi, lo, val)``, so the result is unique:
 :func:`sort_rows_plain` computes it with two stable PyTorch sorts and is
@@ -13,15 +17,70 @@ the version the kernel is held against, bit for bit.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.core.encoding import packed_key
 from repro_torch.kernels import build
 
 SOURCE = "src/repro_torch/csrc/bitonic.cu"
-# widest row whose 12 bytes a slot fit the 227 KB of shared memory a
-# block may use (a power of two, as the network needs)
+# widest row whose 12 bytes a slot (plus one word in 32 of padding) fit
+# the 227 KB of shared memory a block may use (a power of two, as the
+# network needs)
 MAX_WIDTH = 16384
+MAX_ELEMS = 32  # slots a thread holds in registers
+WARP_BLOCK = 128  # threads of a block of warp-sorted rows
+
+
+class Geometry(NamedTuple):
+    rows_per_block: int
+    threads_per_row: int
+    elems: int  # slots a thread holds
+    shared_bytes: int
+
+
+def launch_geometry(c: int) -> Geometry:
+    """The kernel's launch for rows of width ``c`` (a power of two no
+    wider than :data:`MAX_WIDTH`): ``min(c, 32)`` slots a thread and
+    ``max(1, c / 32)`` threads a row.  A row of at most 32 threads is
+    sorted inside one warp, several rows to a block of
+    :data:`WARP_BLOCK` threads; a wider row takes a block of its own.
+    Shared memory holds the block's slots in three u32 planes with one
+    spare word in 32."""
+    if c < 1 or c & (c - 1) or c > MAX_WIDTH:
+        raise ValueError(
+            f"row width {c} must be a power of two <= {MAX_WIDTH} "
+            "(one row must fit a block's shared memory)"
+        )
+    e = min(c, MAX_ELEMS)
+    t = c // e
+    rows = WARP_BLOCK // t if t <= 32 else 1
+    threads = rows * t
+    return Geometry(rows, t, e, threads // 32 * 3 * 33 * e * 4)
+
+
+def stage_split(c: int) -> dict[str, int]:
+    """How many of the log2(c)(log2(c)+1)/2 stages of a row run in
+    registers, by warp shuffles and through shared memory, and the
+    shared-memory round trips of a row (those stages plus the two
+    layout passes)."""
+    e = launch_geometry(c).elems
+    split = {"registers": 0, "shuffles": 0, "shared": 0}
+    k = 2
+    while k <= c:
+        j = k // 2
+        while j >= 1:
+            if j < e:
+                split["registers"] += 1
+            elif j < 32 * e:
+                split["shuffles"] += 1
+            else:
+                split["shared"] += 1
+            j //= 2
+        k *= 2
+    split["shared_round_trips"] = split["shared"] + 2
+    return split
 
 
 def sort_rows_plain(
@@ -53,11 +112,7 @@ def sort_rows_cuda(
     if not (hi.is_contiguous() and lo.is_contiguous() and val.is_contiguous()):
         raise ValueError("rows must be contiguous")
     r, c = hi.shape
-    if c & (c - 1) or c > MAX_WIDTH:
-        raise ValueError(
-            f"row width {c} must be a power of two <= {MAX_WIDTH} "
-            "(one row must fit a block's shared memory)"
-        )
+    geo = launch_geometry(c)
     hi_o, lo_o, val_o = (torch.empty_like(t) for t in (hi, lo, val))
     lib = build.library()
     with torch.cuda.device(hi.device):
@@ -65,7 +120,7 @@ def sort_rows_cuda(
         code = lib.repro_sort_rows(
             hi.data_ptr(), lo.data_ptr(), val.data_ptr(),
             hi_o.data_ptr(), lo_o.data_ptr(), val_o.data_ptr(),
-            r, c, stream,
+            r, c, *geo, stream,
         )
     build.check(code, "bitonic kernel")
     return hi_o, lo_o, val_o

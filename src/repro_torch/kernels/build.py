@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -44,7 +45,9 @@ _SIGNATURES = {
     "repro_rmi_bucket": (
         _I, [_P, _P, _LL, _U, _U, _F, _F, _F, _I, _P, _P, _I, _P, _P],
     ),
-    "repro_sort_rows": (_I, [_P, _P, _P, _P, _P, _P, _LL, _I, _P]),
+    "repro_sort_rows": (
+        _I, [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _LL, _P],
+    ),
     "repro_histogram": (_I, [_P, _LL, _I, _P, _P]),
     "repro_histogram_shared_bins": (_I, [ctypes.POINTER(_I)]),
     "repro_cuda_error_string": (ctypes.c_char_p, [_I]),
@@ -52,7 +55,8 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: "ctypes.CDLL | None" = None
-# what loading did: compiled or cached, seconds, path, ptxas resource lines
+# what loading did: compiled or cached, seconds, path, and by source the
+# ptxas lines naming each entry's registers and spills
 build_info: dict = {}
 
 
@@ -82,8 +86,13 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def _compile(out: Path) -> str:
-    """Compile every source in parallel, link, and publish ``out``."""
+def _ptxas_path(so: Path) -> Path:
+    return so.with_name(so.name + ".ptxas.json")
+
+
+def _compile(out: Path) -> dict[str, list[str]]:
+    """Compile every source in parallel, link, and publish ``out`` with
+    the ptxas resource lines of each source beside it (returned too)."""
     nvcc = _nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
@@ -99,10 +108,10 @@ def _compile(out: Path) -> str:
                     text=True,
                 )
             )
-        logs = []
+        logs = {}
         for src, p in zip(SOURCES, procs):
             log, _ = p.communicate()
-            logs.append(log)
+            logs[src] = log
             if p.returncode != 0:
                 for q in procs:
                     if q.poll() is None:
@@ -118,8 +127,18 @@ def _compile(out: Path) -> str:
         )
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        ptxas = {
+            src: [
+                ln.strip() for ln in log.splitlines()
+                if any(w in ln for w in ("registers", "spill", "entry"))
+            ]
+            for src, log in logs.items()
+        }
+        side = Path(tmp) / "ptxas.json"
+        side.write_text(json.dumps(ptxas))
+        os.replace(side, _ptxas_path(out))
         os.replace(lib, out)
-    return "".join(logs)
+    return ptxas
 
 
 def library() -> ctypes.CDLL:
@@ -130,7 +149,11 @@ def library() -> ctypes.CDLL:
             t0 = time.perf_counter()
             so = build_dir() / f"librepro_torch_kernels_{_digest()}.so"
             compiled = not so.exists()
-            log = _compile(so) if compiled else ""
+            if compiled:
+                ptxas = _compile(so)
+            else:
+                side = _ptxas_path(so)
+                ptxas = json.loads(side.read_text()) if side.exists() else {}
             lib = ctypes.CDLL(str(so))
             for name, (restype, argtypes) in _SIGNATURES.items():
                 fn = getattr(lib, name)
@@ -140,10 +163,7 @@ def library() -> ctypes.CDLL:
                 compiled=compiled,
                 seconds=time.perf_counter() - t0,
                 path=str(so),
-                ptxas=[
-                    ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "Compiling entry" in ln
-                ],
+                ptxas=ptxas,
             )
             _lib = lib
         return _lib

@@ -6,9 +6,9 @@ its plain PyTorch version, bit for bit, the batched executor and
 Every test needs a CUDA device (a CUDA kernel has no CPU mode) and skips
 without one; the check happens when the test runs.  This file imports
 neither ``jax`` nor ``repro``, so it runs on a machine with the card
-and PyTorch alone:
+and PyTorch alone; its tests carry the ``cuda`` marker:
 
-    python -m pytest -q tests/test_torch_cuda.py
+    python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
 import hashlib
@@ -20,6 +20,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import external, rmi as trmi  # noqa: E402
 from repro_torch.core.config import SortConfig  # noqa: E402
+from repro_torch.core.encoding import SENTINEL  # noqa: E402
 from repro_torch.core.executor import (  # noqa: E402
     BatchedDeviceExecutor,
     HostSortExecutor,
@@ -34,6 +35,8 @@ from repro_torch.kernels import (  # noqa: E402
     rmi,
 )
 from repro_torch.serve.index import SortedFileIndex  # noqa: E402
+
+pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
@@ -101,12 +104,49 @@ def test_rmi_kernel_saturating_root(cuda):
         assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize(
-    "r,c,dups", [(1, 1, 3), (3, 2, 3), (7, 64, 3), (64, 1024, 3),
-                 (64, 1024, 2**32 - 1), (2, 16384, 3)],
-)
-def test_bitonic_kernel_equals_plain(cuda, r, c, dups):
-    args = [t.to(cuda) for t in _rows(r, c, dups)]
+ROW_KINDS = ["random", "dups", "val_ties", "equal", "sentinel_rows",
+             "presorted", "reversed"]
+
+
+def _kind_rows(r, c, kind, seed=0):
+    """(r, c) rows of one kind: random words, few distinct keys, equal
+    keys with tied vals, all-equal keys, SENTINEL-only rows between
+    random ones, rows already sorted, rows sorted in reverse."""
+    rng = np.random.default_rng(seed + r * c)
+    hi = rng.integers(0, 2**32, size=(r, c))
+    lo = rng.integers(0, 2**32, size=(r, c))
+    val = rng.integers(-(2**31), 2**31 - 1, size=(r, c))
+    if kind == "dups":
+        hi, lo = hi % 3, lo % 5
+        val = np.tile(np.arange(c)[::-1], (r, 1))
+    elif kind == "val_ties":
+        hi, lo, val = hi % 2, lo % 2, val % 3
+    elif kind == "equal":
+        hi[:], lo[:] = 7, 11
+    elif kind == "sentinel_rows":
+        hi[::2], lo[::2], val[::2] = SENTINEL, SENTINEL, 2**31 - 1
+    rows = [
+        torch.from_numpy(np.ascontiguousarray(a).astype(d))
+        for a, d in ((hi, np.int64), (lo, np.int64), (val, np.int32))
+    ]
+    if kind in ("presorted", "reversed"):
+        rows = list(bitonic.sort_rows_plain(*rows))
+        if kind == "reversed":
+            rows = [t.flip(1).contiguous() for t in rows]
+    return rows
+
+
+@pytest.mark.parametrize("kind", ROW_KINDS)
+@pytest.mark.parametrize("c", [1 << i for i in range(15)])
+def test_bitonic_kernel_equals_plain(cuda, c, kind):
+    """Every width from 1 to 16,384, so every layout of the kernel runs
+    (a thread a row, part of a warp, a warp, a block a row), on a row
+    count that leaves the last block and its last warp part-filled."""
+    geo = bitonic.launch_geometry(c)
+    r = 3
+    if geo.rows_per_block > 1:
+        r = geo.rows_per_block + 32 // geo.threads_per_row + 1
+    args = [t.to(cuda) for t in _kind_rows(r, c, kind)]
     got = bitonic.sort_rows_cuda(*args)
     want = bitonic.sort_rows_plain(*args)
     torch.cuda.synchronize()

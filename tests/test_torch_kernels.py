@@ -7,6 +7,8 @@ CUDA kernels themselves are held against their plain versions in
 ``tests/test_torch_cuda.py``, which needs a card.
 """
 
+import json
+
 import numpy as np
 import pytest
 
@@ -145,3 +147,29 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         build.library()
     assert not list(tmp_path.glob("*.so"))
+
+
+def test_build_keeps_ptxas_lines_beside_the_library(tmp_path, monkeypatch):
+    """Each source's ptxas register and spill lines are kept beside the
+    built library, so a later load of the cached library reports them."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        'while [ $# -gt 0 ] && [ "$1" != "-o" ]; do shift; done\n'
+        ': > "$2"\n'
+        'echo "ptxas info    : Used 133 registers, used 0 barriers"\n'
+        'echo "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"\n'
+        'echo "unrelated"\n'
+    )
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(build, "_nvcc", lambda: str(nvcc))
+    so = tmp_path / "lib.so"
+    ptxas = build._compile(so)
+    assert so.exists()
+    assert sorted(ptxas) == sorted(build.SOURCES)
+    for lines in ptxas.values():
+        assert lines == [
+            "ptxas info    : Used 133 registers, used 0 barriers",
+            "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        ]
+    assert json.loads(build._ptxas_path(so).read_text()) == ptxas
