@@ -13,15 +13,20 @@ Phases, one line each (any failure exits non-zero):
 2. kernels — each kernel against its plain PyTorch version on the card,
    bit for bit, at the shapes the paths give it: encode at
    (1,441,792, 8); RMI at 2**20 buckets with 25,000 and 65,536 leaves on
-   uniform and skewed keys, and at the serving shape (10,000,000 buckets,
-   batches of 64 and 4096 keys); bitonic at (8192, 1024) — the batch the
+   uniform and skewed keys, each in generation order and in the main
+   path's routed order (two range partitions, each shuffled), and at the
+   serving shape (10,000,000 buckets, batches of 64 and 4096 keys);
+   bitonic at (8192, 1024) — the batch the
    256 MB default budget produces on a 1 GB file (15 partitions of
    ~667k records, two per batch, padded to 1,441,792 slots) — and over a
    sweep of every width ``fused.plan_batch`` gives, at ~8.4M slots each
    (``BITONIC_SWEEP``), on random, all-equal, SENTINEL-row, presorted
    and reversed rows, each width timed against ``torch.sort``; histogram
-   at (1,441,792 ids, 8192 bins) and (1,441,792 ids, 2**20 bins), with
-   out-of-range and all-equal ids;
+   at 1,441,792 ids over 8192, 58,113, the split strategy's top bin
+   count (116,224), 464,896 and 2**20 bins, on routed, uniform,
+   out-of-range and all-equal ids, with its strategy;
+   and the launch floor (a 1-element PyTorch add, timed the same way)
+   beside RMI's serving shape and the histogram;
 3. main    — ``repro_torch.core.external.sort_file`` under
    ``SortConfig(manifest=True)`` (device ``cuda``) on a 1 GB skewed
    gensort file (10M records), validated, with every kernel of the sort
@@ -59,7 +64,11 @@ NON_TENSOR_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 MAIN_RECORDS = 10_000_000
 BATCH = 1_441_792  # pad_target of two ~667k-record partitions
 IDENTITY_RECORDS = 1_000_000
-HIST_BINS = (8192, 1 << 20)  # the grid's rows per batch; fused.Q_RES
+# the grid's rows per batch; one bin past a block's shared memory (the
+# split strategy); 8 blocks' shared memory (global); fused.Q_RES (the
+# split strategy's top bin count, read from the device, is added)
+HIST_BINS = (8192, 58_113, 464_896, 1 << 20)
+HALF = 666_896  # records of the batch's first partition
 # 10,000 points, not 20,000: each hit costs 24-38 ms of host time (this
 # script, beside an H100 80GB HBM3 at 700 W), because a 1 GB file's
 # ~67 MB partitions exceed the default 64 MB block cache, whose bypass
@@ -171,70 +180,80 @@ def phase_kernels(torch, dev) -> dict:
         f"{cuda_ms(torch, launch, cold=False):.4f} ms), plain "
         f"{results['encode']['plain_ms']:.4f} ms, bound {b_ms:.4f} ms")
 
+    # keys as the main path routes them: two range partitions, each in an
+    # order of its own
+    order = np.concatenate([
+        np.random.default_rng(2).permutation(HALF),
+        HALF + np.random.default_rng(3).permutation(n - HALF),
+    ])
+    routed = {}
+    for dist, k in keys_np.items():
+        kv = np.ascontiguousarray(k).view("S10").reshape(-1)
+        routed[dist] = k[np.argsort(kv, kind="stable")][order]
+
     # -- RMI ---------------------------------------------------------------
     rmi_err, rmi_entry, model_main = 0, None, None
     for n_leaf in (25_000, 65_536):
         for dist in ("uniform", "skewed"):
-            k = keys_np[dist]
             # the main path trains n_leaf = sample / 4 leaves
-            sample = k[:: max(1, n // (4 * n_leaf))]
+            sample = keys_np[dist][:: max(1, n // (4 * n_leaf))]
             model = rmi_lib.fit(sample, n_leaf=n_leaf).to(dev)
-            hi, lo = encode.encode_cuda(
-                torch.from_numpy(k[:, :8].copy()).to(dev)
-            )
-            got = rmi.rmi_bucket_cuda(model, hi, lo, fused.Q_RES)
-            want = rmi.rmi_bucket_plain(model, hi, lo, fused.Q_RES)
-            torch.cuda.synchronize()
-            err = max_abs_err(torch, [got], [want])
-            require(err == 0, f"RMI kernel (L={n_leaf}, {dist}) differs by {err}")
-            rmi_err = max(rmi_err, err)
-            ft, ut = model.kernel_tables
-            launch = raw_launch(
-                torch, "repro_rmi_bucket", hi, lo, n,
-                int(model.min_hi), int(model.min_lo),
-                float(model.inv_range), float(model.root_slope),
-                float(model.root_intercept), fused.Q_RES, ft, ut, n_leaf, got,
-            )
-            ms = cuda_ms(torch, launch)
-            warm = cuda_ms(torch, launch, cold=False)
-            plain = cuda_ms(
-                torch,
-                lambda: rmi.rmi_bucket_plain(model, hi, lo, fused.Q_RES),
-                reps=5,
-            )
-            table_bytes = n_leaf * (5 * 4 + 2 * 8)
-            b_ms, b_by = bound(n * (8 + 8 + 4) + table_bytes, 0)
-            log(f"kernels: rmi n={n} L={n_leaf} {dist} bit-equal; kernel "
-                f"{ms:.4f} ms (warm L2 {warm:.4f} ms), plain {plain:.4f} ms, "
-                f"bound {b_ms:.4f} ms")
-            if n_leaf == 25_000 and dist == "skewed":
-                # the 1 GB main path trains 25,000 leaves on skewed keys
-                model_main = model
-                rmi_entry = dict(
-                    name="rmi_bucket", route="cuda", source=rmi.SOURCE,
-                    replaces="src/repro/kernels/rmi.py:64",
-                    ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                    library_ms=None,
+            for key_order, k in (("generation", keys_np[dist]),
+                                 ("routed", routed[dist])):
+                hi, lo = encode.encode_cuda(
+                    torch.from_numpy(k[:, :8].copy()).to(dev)
                 )
+                got = rmi.rmi_bucket_cuda(model, hi, lo, fused.Q_RES)
+                want = rmi.rmi_bucket_plain(model, hi, lo, fused.Q_RES)
+                torch.cuda.synchronize()
+                err = max_abs_err(torch, [got], [want])
+                require(err == 0, f"RMI kernel (L={n_leaf}, {dist}, "
+                                  f"{key_order} order) differs by {err}")
+                rmi_err = max(rmi_err, err)
+                launch = raw_launch(
+                    torch, "repro_rmi_bucket", hi, lo, n,
+                    int(model.min_hi), int(model.min_lo),
+                    float(model.inv_range), float(model.root_slope),
+                    float(model.root_intercept), fused.Q_RES,
+                    model.kernel_table, n_leaf, got,
+                )
+                ms = cuda_ms(torch, launch)
+                warm = cuda_ms(torch, launch, cold=False)
+                plain = cuda_ms(
+                    torch,
+                    lambda: rmi.rmi_bucket_plain(model, hi, lo, fused.Q_RES),
+                    reps=5,
+                )
+                # kept at n x 20 B + L x 36 B (the split tables' bytes) so
+                # that bounds compare across designs; the packed rows are
+                # 32 B a leaf
+                table_bytes = n_leaf * (5 * 4 + 2 * 8)
+                b_ms, b_by = bound(n * (8 + 8 + 4) + table_bytes, 0)
+                log(f"kernels: rmi n={n} L={n_leaf} {dist} {key_order} order "
+                    f"bit-equal; kernel {ms:.4f} ms (warm L2 {warm:.4f} ms), "
+                    f"plain {plain:.4f} ms, bound {b_ms:.4f} ms = "
+                    f"{b_ms / ms:.1%} of bound")
+                if (n_leaf, dist, key_order) == (25_000, "skewed", "routed"):
+                    # the 1 GB main path trains 25,000 leaves on skewed
+                    # keys and routes them so
+                    model_main = model
+                    rmi_entry = dict(
+                        name="rmi_bucket", route="cuda", source=rmi.SOURCE,
+                        replaces="src/repro/kernels/rmi.py:64",
+                        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                        library_ms=None,
+                    )
     rmi_entry["max_abs_err"] = rmi_err
     results["rmi_bucket"] = rmi_entry
 
     # -- bitonic: the rows the grid graph builds for a main-path batch ------
-    k = keys_np["skewed"]
-    kv = np.ascontiguousarray(k).view("S10").reshape(-1)
-    k = k[np.argsort(kv, kind="stable")]  # two range partitions, as routed
-    half = 666_896
-    order = np.concatenate([
-        np.random.default_rng(2).permutation(half),
-        half + np.random.default_rng(3).permutation(n - half),
-    ])
-    keys_b = torch.from_numpy(k[order, :8].copy()).to(dev)
+    keys_b = torch.from_numpy(routed["skewed"][:, :8].copy()).to(dev)
     seg = torch.from_numpy(
-        (np.arange(n) >= half).astype(np.int32)
+        (np.arange(n) >= HALF).astype(np.int32)
     ).to(dev)
     n_rows, capacity = fused.plan_batch(n, 15)
     require((n_rows, capacity) == (8192, 1024), f"plan {n_rows}x{capacity}")
-    alloc = np.ones(2, np.int64) + (n_rows - 2) * np.array([half, n - half]) // n
+    alloc = np.ones(2, np.int64) + (n_rows - 2) * np.array([HALF, n - HALF]) // n
     plan = np.zeros(2 * 15, np.int32)
     plan[15:17] = alloc
     plan[1] = alloc[0]
@@ -278,8 +297,12 @@ def phase_kernels(torch, dev) -> dict:
         f"{bitonic.stage_split(capacity)}")
     bitonic_sweep(torch, dev)
 
+    # -- the launch floor: the least an event-timed launch can show -------
+    one = torch.zeros(1, device=dev)
+    floor = cuda_ms(torch, lambda: one.add_(1))
+    log(f"kernels: launch floor (1-element add_, cold) {floor:.4f} ms")
+
     # -- RMI at the serving shape: rows of the 10M-record sorted file ------
-    ft, ut = model_main.kernel_tables
     for b in (64, 4096):
         hi, lo = encode.encode_cuda(
             torch.from_numpy(keys_np["skewed"][:b, :8].copy()).to(dev)
@@ -293,8 +316,8 @@ def phase_kernels(torch, dev) -> dict:
             torch, "repro_rmi_bucket", hi, lo, b,
             int(model_main.min_hi), int(model_main.min_lo),
             float(model_main.inv_range), float(model_main.root_slope),
-            float(model_main.root_intercept), MAIN_RECORDS, ft, ut,
-            model_main.n_leaf, got,
+            float(model_main.root_intercept), MAIN_RECORDS,
+            model_main.kernel_table, model_main.n_leaf, got,
         )
         # a batch touches at most one 36-byte leaf row a key
         b_ms, _ = bound(b * (8 + 8 + 4) + min(b, model_main.n_leaf) * 36, 0)
@@ -302,7 +325,7 @@ def phase_kernels(torch, dev) -> dict:
             f"bit-equal; kernel {cuda_ms(torch, launch):.4f} ms (warm L2 "
             f"{cuda_ms(torch, launch, cold=False):.4f} ms), plain "
             f"{cuda_ms(torch, lambda: rmi.rmi_bucket_plain(model_main, hi, lo, MAIN_RECORDS), reps=5):.4f} ms, "
-            f"bound {b_ms:.6f} ms")
+            f"bound {b_ms:.6f} ms, launch floor {floor:.4f} ms")
 
     # -- histogram: the routing histogram of a main-path batch -------------
     from repro_torch.kernels import histogram
@@ -310,10 +333,14 @@ def phase_kernels(torch, dev) -> dict:
     hi, lo = encode.encode_cuda(
         torch.from_numpy(keys_np["skewed"][:, :8].copy()).to(dev)
     )
-    max_bins = histogram.shared_max_bins()
+    max_bins = histogram.max_block_bins()
+    top = histogram.SPLIT_CLUSTER * max_bins  # the split strategy's top
+    log(f"kernels: histogram strategies: shared up to {max_bins} bins (a "
+        f"block's shared memory), split over clusters of "
+        f"{histogram.SPLIT_CLUSTER} up to {top}, global beyond")
     rng = np.random.default_rng(4)
     hist_err = 0
-    for n_bins in HIST_BINS:
+    for n_bins in sorted({*HIST_BINS, top}):
         uniform = rng.integers(0, n_bins, size=n, dtype=np.int32)
         mixed = uniform.copy()
         bad = rng.choice(n, size=n // 5, replace=False)
@@ -328,29 +355,34 @@ def phase_kernels(torch, dev) -> dict:
             "equal": torch.full((n,), n_bins // 3, dtype=torch.int32,
                                 device=dev),
         }
-        strategy = "shared" if n_bins <= max_bins else "global"
+        geo = histogram.launch_geometry(n_bins, max_bins)
         for name, ids in cases.items():
             got = histogram.histogram_cuda(ids, n_bins)
             want = histogram.histogram_plain(ids, n_bins)
+            keep = (ids >= 0) & (ids < n_bins)
+            lib = torch.bincount(ids[keep], minlength=n_bins)
             torch.cuda.synchronize()
             err = max_abs_err(torch, [got], [want])
             require(err == 0, f"histogram kernel ({n_bins} bins, {name}) "
                               f"differs from its plain version by {err}")
-            in_range = int(((ids >= 0) & (ids < n_bins)).sum())
-            require(int(got.sum()) == in_range,
+            require(torch.equal(lib.to(torch.int32), got),
+                    f"torch.bincount disagrees with the kernel ({n_bins} "
+                    f"bins, {name})")
+            require(int(got.sum()) == int(keep.sum()),
                     f"histogram ({n_bins}, {name}) counted out-of-range ids")
             hist_err = max(hist_err, err)
             out = torch.empty(n_bins, dtype=torch.int32, device=dev)
             ms = cuda_ms(torch, raw_launch(
-                torch, "repro_histogram", ids, n, n_bins, out
+                torch, "repro_histogram", ids, n, n_bins,
+                histogram.STRATEGIES.index(geo.strategy), geo.cluster,
+                geo.block_bins, geo.slice, out,
             ))
             b_ms, b_by = bound(n * 4 + n_bins * 4, n)
             line = (f"kernels: histogram ({n}, {n_bins}) {name} bit-equal "
-                    f"({strategy}); kernel {ms:.4f} ms, bound {b_ms:.4f} ms")
+                    f"({geo.strategy}, cluster {geo.cluster}, "
+                    f"{geo.block_bins} bins a block); kernel {ms:.4f} ms, "
+                    f"bound {b_ms:.4f} ms, launch floor {floor:.4f} ms")
             if name == "routed":
-                lib = torch.bincount(ids, minlength=n_bins)
-                require(torch.equal(lib.to(torch.int32), got),
-                        "torch.bincount disagrees with the kernel")
                 entry = dict(
                     name="bucket_histogram", route="cuda",
                     source=histogram.SOURCE,

@@ -212,7 +212,8 @@ class BatchedDeviceExecutor(SortExecutor):
       ``(seg, hi, lo)`` sort.
 
     Both pack into size-bucketed static shapes (``fused.pad_target``).
-    On a CUDA device the grid always runs the kernels."""
+    On a CUDA device the grid always runs the kernels.  ``device``
+    defaults to the card and raises where there is none."""
 
     name = "batched"
     parallel_safe = False  # one packer must own the super-batch
@@ -221,7 +222,7 @@ class BatchedDeviceExecutor(SortExecutor):
         self,
         model,
         *,
-        device="cpu",
+        device="cuda",
         use_kernels: bool = False,
         batch_slots: int = 1 << 20,
         batch_bytes: int = 256 << 20,
@@ -231,7 +232,7 @@ class BatchedDeviceExecutor(SortExecutor):
         clock=None,
     ):
         super().__init__(model, clock=clock)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         on_cpu = self.device.type == "cpu"
         # note: self.batch_slots (base class) is the instrumentation
         # counter; the packing bound lives in _slots_cap/_bytes_cap
@@ -422,11 +423,13 @@ def make_executor(
     """Build the executor for a sort run.
 
     ``config`` (``repro_torch.core.config.ExecutorConfig``) is the knob
-    surface; non-default keywords override it.  ``executor="auto"``
-    resolves by device: on a CUDA device, the batched executor on the
-    grid graph with the kernels; on the CPU, as the reference does on
-    its CPU backend (host unless ``device_sort``/``use_kernels``, then
-    batched).  ``"host"`` and ``"batched"`` force an implementation.
+    surface; non-default keywords override it.  Without a config or a
+    ``device``, the run is on the card (``"cuda"``, which raises where
+    there is none).  ``executor="auto"`` resolves by device: on a CUDA
+    device, the batched executor on the grid graph with the kernels; on
+    the CPU, as the reference does on its CPU backend (host unless
+    ``device_sort``/``use_kernels``, then batched).  ``"host"`` and
+    ``"batched"`` force an implementation.
     """
     if config is not None:
         device_sort = device_sort or config.device_sort
@@ -436,7 +439,7 @@ def make_executor(
         batch_bytes = batch_bytes or config.batch_bytes
         max_segments = max_segments or config.max_segments
         device = device if device is not None else config.device
-    dev = resolve_device(device if device is not None else "cpu")
+    dev = resolve_device(device if device is not None else "cuda")
     choice = executor or "auto"
     if choice == "auto":
         use_device = device_sort or use_kernels or dev.type == "cuda"

@@ -95,10 +95,45 @@ class RMIParams:
         return torch.stack([self.leaf_min_hi, self.leaf_min_lo], dim=1)
 
     @functools.cached_property
-    def kernel_tables(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """``(ftable(), utable())`` as contiguous tensors, built once per
-        model and device (the RMI kernel reads them on every launch)."""
-        return self.ftable().contiguous(), self.utable().contiguous()
+    def kernel_table(self) -> torch.Tensor:
+        """:func:`pack_leaf_table` on this model's device, built once per
+        model and device (the RMI kernel reads it on every launch)."""
+        return pack_leaf_table(self).to(self.device)
+
+
+# The RMI kernel's leaf row: eight 32-bit words, 32 bytes, one sector.
+# f32 fields are carried as their bit patterns, u32 fields as their low
+# 32 bits; csrc/rmi.cu reads a row as two 16-byte loads in this order.
+LEAF_ROW = (
+    "slope", "intercept", "band_lo", "band_hi", "inv_range",
+    "min_hi", "min_lo", "pad",
+)
+_ROW_F32 = ("leaf_slope", "leaf_intercept", "leaf_lo", "leaf_hi", "leaf_inv_range")
+_ROW_U32 = ("leaf_min_hi", "leaf_min_lo")
+
+
+def _u32_bits(v: torch.Tensor) -> torch.Tensor:
+    """int64-carried u32 -> int32 with the same low 32 bits (values from
+    2**31 up wrap to negatives; they neither saturate nor raise)."""
+    v = v.to(torch.int64) & 0xFFFFFFFF
+    return torch.where(v >= 2**31, v - 2**32, v).to(torch.int32)
+
+
+def pack_leaf_table(params: RMIParams) -> torch.Tensor:
+    """(L, 8) int32 leaf rows in :data:`LEAF_ROW` order, on the CPU; a
+    fresh contiguous tensor, so its base is aligned for 16-byte loads."""
+    f = torch.stack([getattr(params, n).cpu() for n in _ROW_F32], dim=1)
+    u = torch.stack([_u32_bits(getattr(params, n).cpu()) for n in _ROW_U32], dim=1)
+    pad = torch.zeros(params.n_leaf, 1, dtype=torch.int32)
+    return torch.cat([f.contiguous().view(torch.int32), u, pad], dim=1)
+
+
+def unpack_leaf_table(table: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``(ftable(), utable())`` a packed table holds, bit for bit."""
+    k = len(_ROW_F32)
+    f = table[:, :k].contiguous().view(torch.float32)
+    u = table[:, k : k + len(_ROW_U32)].to(torch.int64) & 0xFFFFFFFF
+    return f, u
 
 
 def params_from_numpy(p) -> RMIParams:

@@ -43,13 +43,13 @@ _P, _I, _LL, _U, _F = (
 _SIGNATURES = {
     "repro_encode": (_I, [_P, _P, _P, _LL, _P]),
     "repro_rmi_bucket": (
-        _I, [_P, _P, _LL, _U, _U, _F, _F, _F, _I, _P, _P, _I, _P, _P],
+        _I, [_P, _P, _LL, _U, _U, _F, _F, _F, _I, _P, _I, _P, _P],
     ),
     "repro_sort_rows": (
         _I, [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _LL, _P],
     ),
-    "repro_histogram": (_I, [_P, _LL, _I, _P, _P]),
-    "repro_histogram_shared_bins": (_I, [ctypes.POINTER(_I)]),
+    "repro_histogram": (_I, [_P, _LL, _I, _I, _I, _I, _I, _P, _P]),
+    "repro_histogram_max_bins": (_I, [ctypes.POINTER(_I)]),
     "repro_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -1,12 +1,14 @@
 """RMI kernel: fused two-level RMI inference -> equi-depth bucket id.
 
 Replaces ``src/repro/kernels/rmi.py:rmi_bucket_pallas``.  The CUDA source
-is ``csrc/rmi.cu``; its note says what bounds the kernel (memory: 16
-bytes read and 4 written per record, plus leaf-row gathers that the L2
-serves) and why the leaf tables stay in global memory at the main
-path's leaf counts.  :func:`rmi_bucket_plain` is the plain PyTorch
-version it is held against; both round every float step on its own and
-saturate float -> int casts, so their ids agree bit for bit.
+is ``csrc/rmi.cu``; its note says what bounds the kernel (the leaf-row
+gather, served by the L2, more than the 16 bytes read and 4 written a
+record) and how its design meets it: one 32-byte row a leaf
+(``RMIParams.kernel_table``, laid out by ``core/rmi.pack_leaf_table``),
+read by two 16-byte loads, one record a thread.  :func:`rmi_bucket_plain`
+is the plain PyTorch version it is held against; both round every float
+step on its own and saturate float -> int casts, so their ids agree bit
+for bit.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ def rmi_bucket_cuda(
         raise ValueError(f"model on {params.device}, keys on {hi.device}")
     if not 1 <= n_buckets < 2**31:
         raise ValueError(f"n_buckets {n_buckets} outside [1, 2**31)")
-    ftable, utable = params.kernel_tables
+    table = params.kernel_table
     out = torch.empty(hi.shape[0], dtype=torch.int32, device=hi.device)
     lib = build.library()
     with torch.cuda.device(hi.device):
@@ -57,7 +59,7 @@ def rmi_bucket_cuda(
             int(params.min_hi), int(params.min_lo),
             float(params.inv_range), float(params.root_slope),
             float(params.root_intercept), int(n_buckets),
-            ftable.data_ptr(), utable.data_ptr(), params.n_leaf,
+            table.data_ptr(), params.n_leaf,
             out.data_ptr(), stream,
         )
     build.check(code, "RMI kernel")

@@ -24,11 +24,13 @@ from repro_torch.core.encoding import SENTINEL  # noqa: E402
 from repro_torch.core.executor import (  # noqa: E402
     BatchedDeviceExecutor,
     HostSortExecutor,
+    make_executor,
 )
 from repro_torch.core.format import GENSORT  # noqa: E402
 from repro_torch.data import gensort  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     bitonic,
+    build,
     encode,
     histogram,
     ops,
@@ -100,6 +102,53 @@ def test_rmi_kernel_saturating_root(cuda):
         }).to(cuda)
         got = rmi.rmi_bucket_cuda(m, hi, lo, 1 << 20)
         want = rmi.rmi_bucket_plain(m, hi, lo, 1 << 20)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["n1", "n3", "n4097", "odd_offset"])
+@pytest.mark.parametrize("n_buckets", [16, 256, 1 << 20])
+@pytest.mark.parametrize("skewed", [False, True])
+def test_rmi_kernel_tails_and_offsets(cuda, case, n_buckets, skewed):
+    """Lengths that leave a part-filled last warp and block, and a slice
+    at an odd offset (its words not 16-byte aligned)."""
+    keys = (
+        gensort.skewed_keys(4098, seed=21) if skewed
+        else gensort.uniform_keys(4098, seed=21)
+    )
+    model = trmi.fit(keys[::2], n_leaf=256).to(cuda)
+    hi, lo = encode.encode_cuda(torch.from_numpy(keys[:, :8].copy()).to(cuda))
+    n = {"n1": 1, "n3": 3, "n4097": 4097, "odd_offset": 4097}[case]
+    start = 1 if case == "odd_offset" else 0
+    hi, lo = hi[start : start + n], lo[start : start + n]
+    got = rmi.rmi_bucket_cuda(model, hi, lo, n_buckets)
+    want = rmi.rmi_bucket_plain(model, hi, lo, n_buckets)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_rmi_kernel_packed_row_edge_values(cuda):
+    """Leaves whose u32 words are 2**31 and above and whose floats are
+    NaN or infinite: the kernel reads them from the packed row as the
+    plain version reads the separate fields."""
+    keys = gensort.uniform_keys(4096, seed=8)
+    model = trmi.fit(keys, n_leaf=5)
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)
+    i64 = lambda v: torch.tensor(v, dtype=torch.int64)
+    model = trmi.RMIParams(**{
+        **{f: getattr(model, f) for f in model.__dataclass_fields__},
+        "leaf_slope": f32([0.5, float("nan"), float("inf"), 0.0, 2.0]),
+        "leaf_intercept": f32([0.0, 0.1, float("-inf"), float("nan"), 0.25]),
+        "leaf_min_hi": i64([0, 2**31, 2**32 - 1, 2**31 - 1, 2**31 + 5]),
+        "leaf_min_lo": i64([2**32 - 1, 2**31, 0, 2**31 + 1, 7]),
+        "leaf_inv_range": f32([1.0, float("nan"), float("inf"), 3e-38, 1e-10]),
+    }).to(cuda)
+    table = model.kernel_table
+    assert table.is_cuda and table.data_ptr() % 32 == 0
+    hi, lo = encode.encode_cuda(torch.from_numpy(keys[:, :8].copy()).to(cuda))
+    for n_buckets in (256, 1 << 20):
+        got = rmi.rmi_bucket_cuda(model, hi, lo, n_buckets)
+        want = rmi.rmi_bucket_plain(model, hi, lo, n_buckets)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
 
@@ -179,11 +228,14 @@ def _ids(n, n_buckets, kind, seed=0):
 @pytest.mark.parametrize(
     "n,n_buckets",
     [(1, 1), (1000, 8), (1_441_792, 8192), (100_000, 58_000),
+     (100_000, 58_113), (1_441_792, 116_224), (1_441_792, 464_896),
      (1_441_792, 1 << 20), (5000, 100_000)],
 )
 def test_histogram_kernel_equals_plain(cuda, n, n_buckets, kind):
-    """Both strategies (shared-memory bins up to the opt-in limit, global
-    atomics beyond it), -1 and other out-of-range ids, all-equal ids."""
+    """Every strategy (a private histogram a block, reduced over a
+    cluster, up to 58,112 bins; the bins split over a cluster of 2 up to
+    2 x 58,112; global atomics beyond), -1 and other out-of-range ids,
+    all-equal ids."""
     ids = _ids(n, n_buckets, kind, seed=n).to(cuda)
     got = histogram.histogram_cuda(ids, n_buckets)
     want = histogram.histogram_plain(ids, n_buckets)
@@ -194,10 +246,72 @@ def test_histogram_kernel_equals_plain(cuda, n, n_buckets, kind):
 
 
 def test_histogram_strategy_threshold(cuda):
-    """The H100 opts a block into 227 KB of shared memory: 58,112 bins."""
-    assert histogram.shared_max_bins() == 232_448 // 4
+    """The H100 opts a block into 227 KB of shared memory: a private
+    histogram a block up to 58,112 bins, the bins split over a cluster of
+    2 up to 116,224, global atomics beyond -- read from the device's own
+    attribute."""
+    max_bins = histogram.max_block_bins()
+    if "H100" in torch.cuda.get_device_properties(cuda).name:
+        assert max_bins == 232_448 // 4
+    geo = lambda b: histogram.launch_geometry(b, max_bins)
+    assert geo(max_bins).strategy == "shared"
+    assert geo(max_bins + 1)[:2] == ("split", 2)
+    assert geo(2 * max_bins)[:2] == ("split", 2)
+    assert geo(2 * max_bins + 1).strategy == "global"
+    for n_buckets in (max_bins, max_bins + 1, 2 * max_bins, 2 * max_bins + 1):
+        ids = _ids(100_000, n_buckets, "uniform").to(cuda)
+        assert torch.equal(
+            histogram.histogram_cuda(ids, n_buckets),
+            histogram.histogram_plain(ids, n_buckets),
+        )
     with pytest.raises(ValueError):
         histogram.histogram_cuda(torch.zeros(4, dtype=torch.int64, device=cuda), 4)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+def test_histogram_every_cluster_size(cuda, cluster):
+    """The launch takes clusters of 1 to 16 blocks in both cluster
+    strategies (the geometry picks 8 and 2; the others are measured by
+    experiments/rmi_histogram_variants.py)."""
+    lib = build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    for n_buckets, strategy in ((8192, "shared"), (100_000, "split")):
+        part = -(-n_buckets // cluster)
+        if strategy == "split" and part > histogram.max_block_bins():
+            continue
+        block = n_buckets if strategy == "shared" else part
+        ids = _ids(300_000, n_buckets, "uniform", seed=cluster).to(cuda)
+        out = torch.empty(n_buckets, dtype=torch.int32, device=cuda)
+        build.check(lib.repro_histogram(
+            ids.data_ptr(), ids.shape[0], n_buckets,
+            histogram.STRATEGIES.index(strategy), cluster, block, part,
+            out.data_ptr(), stream,
+        ), "histogram kernel")
+        assert torch.equal(out, histogram.histogram_plain(ids, n_buckets))
+
+
+@pytest.mark.parametrize("n_buckets", [1, 8, 1000, 8192, 58_113])
+@pytest.mark.parametrize("kind", ["equal", "skewed", "tail"])
+def test_histogram_kernel_aggregates_equal_ids(cuda, n_buckets, kind):
+    """Equal ids: all-equal ids (one add a warp step), Zipf-skewed ids
+    (many equal ids in a step), and a length that ends inside a step."""
+    rng = np.random.default_rng(n_buckets)
+    n = 300_001 if kind == "tail" else 1 << 20
+    if kind == "equal":
+        ids = np.full(n, n_buckets - 1, np.int32)
+    elif kind == "skewed":
+        ids = np.minimum(rng.zipf(1.3, size=n) - 1, n_buckets - 1).astype(np.int32)
+    else:
+        ids = rng.integers(-2, n_buckets + 2, size=n, dtype=np.int32)
+    ids = torch.from_numpy(ids).to(cuda)
+    got = histogram.histogram_cuda(ids, n_buckets)
+    want = histogram.histogram_plain(ids, n_buckets)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    keep = (ids >= 0) & (ids < n_buckets)
+    assert torch.equal(
+        got, torch.bincount(ids[keep], minlength=n_buckets).to(torch.int32)
+    )
 
 
 def test_cuda_index_lookups_equal_cpu(cuda, tmp_path):
@@ -288,6 +402,15 @@ def test_executor_on_card_matches_host(cuda, sizes, dup, kw):
     # the histogram kernel is on no path of the sort
     assert [f.launches for f in ops.KERNEL_WRAPPERS] == [ex.dispatches] * 3 + [0]
     assert (ex.fallbacks >= 1) == dup
+
+
+def test_executor_defaults_to_the_card(cuda):
+    """Without ``device=`` both entry points build a CUDA executor."""
+    model = trmi.fit(gensort.uniform_keys(4096, seed=0), n_leaf=64)
+    for ex in (make_executor(model), BatchedDeviceExecutor(model)):
+        assert isinstance(ex, BatchedDeviceExecutor)
+        assert ex.device.type == "cuda" and not ex.flat
+        assert ex.model.device.type == "cuda"
 
 
 @pytest.mark.parametrize("n_readers", [1, 3])

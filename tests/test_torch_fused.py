@@ -212,3 +212,13 @@ def test_make_executor_cuda_needs_a_card():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tex.make_executor(trmi.params_from_numpy(_model()), device="cuda")
+
+
+@pytest.mark.parametrize("build", ["make_executor", "BatchedDeviceExecutor"])
+def test_executor_defaults_to_the_card(build):
+    """Without ``device=`` an executor is built for the card, so on a
+    machine without one it raises instead of running on the host."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(tex, build)(trmi.params_from_numpy(_model()))

@@ -23,6 +23,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core import encoding as jenc  # noqa: E402
 from repro.core import rmi as jrmi  # noqa: E402
 from repro.data import gensort  # noqa: E402
+from repro_torch.core import encoding as tenc  # noqa: E402
 from repro_torch.core import rmi as trmi  # noqa: E402
 
 Q_RES = 1 << 20
@@ -157,3 +158,88 @@ def test_f32_to_i32_saturates_like_xla():
     want = np.asarray(jnp.asarray(v).astype(jnp.int32))
     got = trmi.f32_to_i32(torch.from_numpy(v)).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+def _odd_leaves():
+    """Five leaves whose u32 words sit at and above 2**31 and whose
+    floats are NaN, +-inf and -0.0."""
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)
+    i64 = lambda v: torch.tensor(v, dtype=torch.int64)
+    return dict(
+        leaf_slope=f32([0.5, np.nan, np.inf, -np.inf, -0.0]),
+        leaf_intercept=f32([0.0, 1e-30, -np.inf, np.nan, 0.25]),
+        leaf_lo=f32([0.0, 0.1, np.nan, 0.3, -0.0]),
+        leaf_hi=f32([0.1, np.inf, 0.3, np.nan, 1.0]),
+        leaf_min_hi=i64([0, 2**31, 2**32 - 1, 2**31 - 1, 2**31 + 5]),
+        leaf_min_lo=i64([2**32 - 1, 2**31, 0, 2**31 + 1, 7]),
+        leaf_inv_range=f32([1.0, np.nan, np.inf, 3e-38, 1e-10]),
+    )
+
+
+@pytest.mark.parametrize("n_leaf", [1, 5, 1024])
+def test_packed_leaf_table_unpacks_bit_for_bit(n_leaf):
+    """The kernel's (L, 8) table holds ``ftable()`` and ``utable()`` bit
+    for bit: f32 fields as their bit patterns (NaN payloads, infinities
+    and -0.0 kept), u32 fields as their low 32 bits (2**31 and up wrap,
+    they neither saturate nor raise), and a zero pad word."""
+    model = trmi.fit(gensort.uniform_keys(4096, seed=n_leaf), n_leaf=n_leaf)
+    if n_leaf == 5:
+        model = dataclasses.replace(model, **_odd_leaves())
+    table = trmi.pack_leaf_table(model)
+    assert table.dtype == torch.int32 and table.shape == (n_leaf, 8)
+    assert table.is_contiguous() and table.data_ptr() % 32 == 0
+    assert len(trmi.LEAF_ROW) == 8
+    f, u = trmi.unpack_leaf_table(table)
+    assert torch.equal(f.view(torch.int32), model.ftable().view(torch.int32))
+    assert torch.equal(u, model.utable())
+    np.testing.assert_array_equal(
+        table[:, trmi.LEAF_ROW.index("min_hi")].numpy().view(np.uint32),
+        model.leaf_min_hi.numpy().astype(np.uint32),
+    )
+    assert not table[:, trmi.LEAF_ROW.index("pad")].any()
+    # built once per model and device, on the model's device
+    assert model.kernel_table is model.kernel_table
+    assert torch.equal(model.kernel_table, table)
+
+
+def _replay(params, hi, lo, n_buckets):
+    """``csrc/rmi.cu``'s reading of the packed table in plain torch: each
+    record's root leaf, that leaf's one 32-byte row gathered from
+    ``kernel_table`` (two halves of four words), and the id computed from
+    the row's fields alone."""
+    x = tenc.feature_f32(hi, lo, params.min_hi, params.min_lo, params.inv_range)
+    root = (x * params.root_slope + params.root_intercept) * params.n_leaf
+    leaf = trmi.f32_to_i32(root).clamp(0, params.n_leaf - 1).to(torch.int64)
+    row = params.kernel_table[leaf]  # (n, 8): one 32-byte row a record
+    first, second = row[:, :4], row[:, 4:]  # the kernel's two 16-byte loads
+    half = lambda name: (first, second)[trmi.LEAF_ROW.index(name) // 4]
+    word = lambda name: half(name)[:, trmi.LEAF_ROW.index(name) % 4]
+    f32 = lambda name: word(name).contiguous().view(torch.float32)
+    u32 = lambda name: word(name).to(torch.int64) & 0xFFFFFFFF
+    xl = tenc.feature_f32(hi, lo, u32("min_hi"), u32("min_lo"), f32("inv_range"))
+    y = torch.clamp(xl * f32("slope") + f32("intercept"), f32("band_lo"), f32("band_hi"))
+    return torch.clamp(trmi.f32_to_i32(y * n_buckets), max=n_buckets - 1)
+
+
+@pytest.mark.parametrize("case", ["n1", "n3", "n4097", "odd_offset"])
+@pytest.mark.parametrize("n_buckets", [16, 256, Q_RES])
+@pytest.mark.parametrize("skewed", [False, True])
+def test_rmi_schedule_replay_equals_eager(case, n_buckets, skewed):
+    """The kernel's reading of the packed table, replayed in plain torch,
+    gives the JAX eager ``rmi.predict_bucket``'s ids bit for bit, at
+    lengths that leave a part-filled last block and warp and on a slice
+    at an odd offset (whose words are not 16-byte aligned)."""
+    keys = _keys(4098, skewed, 21)
+    model = jrmi.fit(keys[::2], n_leaf=256)
+    (hi_j, lo_j), (hi_t, lo_t) = _words(keys)
+    n = {"n1": 1, "n3": 3, "n4097": 4097, "odd_offset": 4097}[case]
+    start = 1 if case == "odd_offset" else 0
+    hi_t, lo_t = hi_t[start : start + n], lo_t[start : start + n]
+    if case == "odd_offset":
+        assert hi_t.data_ptr() % 16 == 8 and lo_t.data_ptr() % 16 == 8
+    want = np.asarray(jrmi.predict_bucket(
+        model, hi_j[start : start + n], lo_j[start : start + n], n_buckets
+    ))
+    got = _replay(trmi.params_from_numpy(model), hi_t, lo_t, n_buckets)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
