@@ -38,7 +38,26 @@ Phases, one line each (any failure exits non-zero):
    points and the ranges through ``QueryEngine`` for its phase seconds, and
    ``repro_torch.launch.query`` end to end at 200,000 records;
 5. bytes   — a 1M-record uniform file sorted on the card has the same
-   sha256 as the port's host-executor output.
+   sha256 as the port's host-executor output, through the batched
+   executor and through the per-partition device chain
+   (``executor="per_partition"``: RMI kernel → bucket grid → row-sort
+   kernel a partition), whose row sorter is also timed against
+   ``torch.sort`` at the chain's own row shape;
+6. cache   — the same file sorted twice on the card under one
+   ``ModelCache``: a miss, then a hit, with the same bytes;
+7. mergesort — ``mergesort.sort_file`` on that file, the same bytes;
+8. ops, lines — the operator cell of ``benchmarks/join_rates.py``: two
+   1,000,000-line keyed corpora (key space 250,000, selectivity 0.1)
+   co-partition-sorted on the card under a 64 MB budget, joined with the
+   boundary check through one RMI kernel launch, and a dup-16 corpus
+   deduplicated with counts and grouped by sum; every sorted run and
+   output has the bytes of the same steps sorted by the host executor,
+   and each output's manifest the model hash of its inputs;
+9. ops, fixed — two 2,500,000-record keyed gensort-stride files (250 MB
+   a side, key space 625,000, selectivity 0.1) co-partition-sorted on
+   the card under the default ``SortConfig()`` (bytes equal to the host
+   executor's), joined with the kernel boundary check; the output count
+   equals a NumPy oracle and its keys are in memcmp order.
 
 It then prints one JSON line describing each kernel (times from CUDA
 events, bounds from the bytes each call must move at 3.35 TB/s or its
@@ -64,6 +83,8 @@ NON_TENSOR_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 MAIN_RECORDS = 10_000_000
 BATCH = 1_441_792  # pad_target of two ~667k-record partitions
 IDENTITY_RECORDS = 1_000_000
+# one power-of-two partition: the per-partition chain pads nothing
+POW2_RECORDS = 1 << 20
 # the grid's rows per batch; one bin past a block's shared memory (the
 # split strategy); 8 blocks' shared memory (global); fused.Q_RES (the
 # split strategy's top bin count, read from the device, is added)
@@ -76,6 +97,12 @@ HALF = 666_896  # records of the batch's first partition
 SERVE_POINTS, SERVE_RANGES, RANGE_RECORDS = 10_000, 200, 1_000
 ENGINE_POINTS = 4096
 QUERY_RECORDS = 200_000
+# the operator cell of benchmarks/join_rates.py (its defaults: 1M lines a
+# side, JOIN_DUP = 4, a 64 MB budget; dedup/groupby on its dup-16 corpus)
+OPS_LINES, OPS_DUP, OPS_BUDGET = 1_000_000, 16, 64 << 20
+# a 500 MB join: 2.5M gensort-stride records a side
+OPS_FIXED = 2_500_000
+OPS_SELECTIVITY = 0.1
 # row widths fused.plan_batch gives: 512-1024 below 4.2M slots, 2048-4096
 # above, 8-256 for small batches of many segments; and the widest row
 BITONIC_SWEEP = ((16384, 512), (8192, 1024), (4096, 2048), (2048, 4096),
@@ -581,6 +608,374 @@ def phase_serve(torch, path: str, tmp: str) -> None:
     log(f"serve: launch.query {QUERY_RECORDS} records: {qstats.summary()}")
 
 
+def launch_counts() -> dict:
+    from repro_torch.kernels import ops
+
+    return {f.__name__: f.launches for f in ops.KERNEL_WRAPPERS}
+
+
+def phase_per_partition(torch, inp: str, refsum: int, want: str,
+                        tmp: str) -> None:
+    """The per-partition device chain, driven through ``sort_file`` on two
+    files: the 1M-record file, whose partitions are padded to a power of
+    two with SENTINEL words that overflow the last bucket, so the stable
+    fallback writes them (the reference's behaviour); and a 2**20-record
+    file in one partition, where the compacted rows are the answer.
+    Both write the host executor's bytes.  The run launches the RMI
+    kernel once a partition and the row sorter once a partition that did
+    not overflow.  Then each kernel is held against its plain version on
+    the chain's own model and partitions, kept as the chain ran, and the
+    row sorter is timed at the chain's rows."""
+    from repro_torch.core import encoding, external, learned_sort, validate
+    from repro_torch.core.config import SortConfig
+    from repro_torch.data import gensort
+    from repro_torch.kernels import bitonic, ops, rmi
+
+    t0 = time.perf_counter()
+    pow2 = os.path.join(tmp, "pow2.bin")
+    gensort.write_file(pow2, POW2_RECORDS, seed=9)
+    pow2_sum = checksum_file(validate, gensort, pow2)
+    host = os.path.join(tmp, "pow2.host")
+    external.sort_file(pow2, host, config=SortConfig(executor="host"))
+    pow2_want = sha256(host)
+    os.unlink(host)
+    files = (
+        ("1M uniform records", inp, IDENTITY_RECORDS, refsum, want, 0),
+        (f"{POW2_RECORDS} uniform records in one partition", pow2,
+         POW2_RECORDS, pow2_sum, pow2_want, 1),
+    )
+
+    # keep each partition's chain inputs as sort_partition passes them
+    chain = learned_sort.sort_device
+    kept = []
+
+    def keep(model, hi, lo, **kw):
+        got = chain(model, hi, lo, **kw)
+        kept.append((len(runs), model, hi, lo, got[3]))
+        return got
+
+    runs = []
+    learned_sort.sort_device = keep
+    try:
+        prof = start_device_trace(torch)
+        ops.reset_launches()
+        for what, path, n, checksum, sha_want, parts in files:
+            out = os.path.join(tmp, "per_partition.sorted")
+            st = external.sort_file(path, out, config=SortConfig(
+                executor="per_partition", n_partitions=parts))
+            torch.cuda.synchronize()
+            require(validate.validate_file(out, checksum, n)["ok"],
+                    f"per_partition output of {what} failed validation")
+            sha = sha256(out)
+            os.unlink(out)
+            require(sha == sha_want,
+                    f"per_partition bytes of {what} {sha} != host {sha_want}")
+            require(st.executor == "per_partition", f"executor {st.executor}")
+            runs.append((what, sha, st))
+        launches = launch_counts()
+    finally:
+        learned_sort.sort_device = chain
+    walls = sum(st.wall_seconds for _, _, st in runs)
+    log_device_time(prof, "bytes: per_partition", walls)
+    dispatches = sum(st.device_dispatches for _, _, st in runs)
+    fallbacks = sum(st.fallbacks for _, _, st in runs)
+    require(runs[1][2].fallbacks < runs[1][2].device_dispatches,
+            "the one power-of-two partition took the stable fallback")
+    require(launches["rmi_bucket"] == dispatches == len(kept) > 0,
+            f"per_partition launched RMI {launches['rmi_bucket']} times "
+            f"for {dispatches} dispatches")
+    require(launches["sort_rows"] == dispatches - fallbacks > 0,
+            f"per_partition launched the row sorter "
+            f"{launches['sort_rows']} times for {dispatches - fallbacks} "
+            f"partitions that did not overflow")
+    for i, (what, sha, st) in enumerate(runs):
+        shapes = sorted({
+            learned_sort.grid_shape(hi.shape[0])
+            for r, _, hi, _, _ in kept if r == i
+        })
+        log(f"bytes: {what}, per_partition on the card == host, sha256 "
+            f"{sha}; partitions of {st.partition_counts} records, rows x "
+            f"width {shapes}, fallbacks {st.fallbacks} of "
+            f"{st.device_dispatches} dispatches, wall {st.wall_seconds:.3f} "
+            f"s ({st.rate_mb_s():.1f} MB/s)")
+    log(f"bytes: per_partition launches {launches}")
+
+    # each kernel against its plain version on the chain's own inputs;
+    # the row sorter timed once at each row shape the chain sorted
+    timed = set()
+    for r, model, hi, lo, overflow in kept:
+        nb, cap = learned_sort.grid_shape(hi.shape[0])
+        ids = rmi.rmi_bucket_cuda(model, hi, lo, nb)
+        err = max_abs_err(torch, [ids.cpu()], [rmi.rmi_bucket_plain(
+            model.to("cpu"), hi.cpu(), lo.cpu(), nb)])
+        require(err == 0, f"RMI kernel on a {hi.shape[0]}-key partition of "
+                          f"{runs[r][0]} differs from its plain version by "
+                          f"{err}")
+        hi_m, lo_m, val_m, counts = learned_sort.grid_rows(
+            model, hi, lo, nb, cap
+        )
+        got = bitonic.sort_rows_cuda(hi_m, lo_m, val_m)
+        err = max_abs_err(torch, got,
+                          bitonic.sort_rows_plain(hi_m, lo_m, val_m))
+        require(err == 0, f"bitonic kernel at the chain's ({nb}, {cap}) rows "
+                          f"differs from its plain version by {err}")
+        if (nb, cap) in timed:
+            continue
+        timed.add((nb, cap))
+        geo = bitonic.launch_geometry(cap)
+        ms = cuda_ms(torch, raw_launch(
+            torch, "repro_sort_rows", hi_m, lo_m, val_m, *got, nb, cap, *geo,
+        ))
+        packed = encoding.packed_key(hi_m, lo_m)
+        lib_ms = cuda_ms(
+            torch, lambda: torch.sort(packed, dim=1, stable=True), reps=10
+        )
+        plain_ms = cuda_ms(
+            torch, lambda: bitonic.sort_rows_plain(hi_m, lo_m, val_m), reps=5
+        )
+        stages = (cap.bit_length() - 1) * cap.bit_length() // 2
+        b_ms, b_by = bound(nb * cap * (8 + 8 + 4) * 2, nb * cap // 2 * stages)
+        log(f"bytes: per_partition chain rows ({nb}, {cap}) of a "
+            f"{hi.shape[0]}-key partition of {runs[r][0]} (max row fill "
+            f"{int(counts.max())}, overflow {overflow}): RMI and sort_rows "
+            f"bit-equal to their plain versions; sort_rows kernel "
+            f"{ms:.4f} ms, torch.sort {lib_ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) = "
+            f"{b_ms / ms:.1%} of bound; stages {bitonic.stage_split(cap)}")
+    log(f"bytes: per_partition chain: RMI and sort_rows bit-equal to their "
+        f"plain versions on all {len(kept)} partitions the chain sorted")
+    os.unlink(pow2)
+    log(f"bytes: per_partition phase {time.perf_counter() - t0:.1f} s")
+
+
+def phase_cache(torch, inp: str, want: str, tmp: str) -> None:
+    """Two sorts of one file under one ModelCache on the card: the
+    second reuses the model, with the same bytes."""
+    from repro_torch.core import external
+    from repro_torch.core.config import SortConfig
+    from repro_torch.core.model_cache import ModelCache
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    cache = ModelCache()
+    runs = []
+    for k in range(2):
+        out = os.path.join(tmp, f"cache{k}.sorted")
+        ops.reset_launches()
+        st = external.sort_file(inp, out,
+                                config=SortConfig(model_cache=cache))
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        runs.append((st.model_cache, sha256(out), st.phase_seconds["train"],
+                     st.wall_seconds, launches))
+        os.unlink(out)
+        for name in ("encode_keys", "rmi_bucket", "sort_rows"):
+            require(launches[name] > 0, f"cache run {k} never launched {name}")
+    require([r[0] for r in runs] == ["miss", "hit"],
+            f"model cache outcomes {[r[0] for r in runs]}")
+    require(runs[0][1] == runs[1][1] == want,
+            f"cache runs wrote other bytes: {[r[1] for r in runs]}")
+    log(f"cache: 1M uniform records twice under one ModelCache: "
+        f"{runs[0][0]} then {runs[1][0]}, same sha256; train phase "
+        f"{runs[0][2]:.4f} s then {runs[1][2]:.4f} s, wall "
+        f"{runs[0][3]:.3f} s then {runs[1][3]:.3f} s; launches "
+        f"{runs[0][4]} then {runs[1][4]}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_mergesort(inp: str, want: str, tmp: str) -> None:
+    from repro_torch.core import mergesort
+
+    t0 = time.perf_counter()
+    out = os.path.join(tmp, "mergesort.sorted")
+    st = mergesort.sort_file(inp, out, workdir=tmp)
+    sha = sha256(out)
+    os.unlink(out)
+    require(sha == want, f"mergesort bytes {sha} != learned sort {want}")
+    phases = {k: round(v, 3) for k, v in st.phase_seconds.items()}
+    log(f"mergesort: 1M uniform records, same sha256 as the learned sort; "
+        f"phase seconds {json.dumps(phases)}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def _manifest_hash(path: str) -> str:
+    from repro_torch.core import manifest
+
+    return manifest.load(manifest.manifest_path(path)).model_hash
+
+
+def phase_ops_lines(torch, tmp: str) -> None:
+    """benchmarks/join_rates.py's cell on the card: co-partitioned sorts,
+    join with the kernel boundary check, dedup with counts, group-by
+    sum; the bytes of the same steps with the host executor."""
+    from repro_torch.core import operators
+    from repro_torch.core.config import SortConfig
+    from repro_torch.core.format import LineFormat
+    from repro_torch.data import lines
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    d = os.path.join(tmp, "ops_lines")
+    os.makedirs(d)
+    key_space = OPS_LINES // 4  # join_rates.JOIN_DUP
+    loff, roff = lines.join_offsets(key_space, OPS_SELECTIVITY)
+    a, b, u = (os.path.join(d, f"{x}.txt") for x in "abu")
+    lines.write_keyed_lines(a, OPS_LINES, key_space=key_space,
+                            key_offset=loff, seed=11)
+    lines.write_keyed_lines(b, OPS_LINES, key_space=key_space,
+                            key_offset=roff, seed=23)
+    lines.write_keyed_lines(u, OPS_LINES, key_space=OPS_LINES // OPS_DUP,
+                            seed=31)
+    log(f"ops: wrote 3 x {OPS_LINES} keyed lines in "
+        f"{time.perf_counter() - t0:.1f} s")
+    fmt = LineFormat(max_key_bytes=lines.KEYED_KEY_BYTES)
+    shas = {}
+    for name, executor in (("card", "auto"), ("host", "host")):
+        cfg = SortConfig(fmt=fmt, memory_budget_bytes=OPS_BUDGET,
+                         flush_bytes=1 << 20, executor=executor)
+        sa, sb, su = (f"{p}.{name}.sorted" for p in (a, b, u))
+        ops.reset_launches()
+        t1 = time.perf_counter()
+        _, st_ab = operators.sort_co_partitioned([a, b], [sa, sb], cfg)
+        _, (st_u,) = operators.sort_co_partitioned([u], [su], cfg)
+        torch.cuda.synchronize()
+        sort_s = time.perf_counter() - t1
+        sort_launches = launch_counts()
+        if name == "card":
+            for k in ("encode_keys", "rmi_bucket", "sort_rows"):
+                require(sort_launches[k] > 0,
+                        f"co-partitioned line sorts never launched {k}")
+        ops.reset_launches()
+        join = operators.external_join(
+            sa, sb, f"{sa}.join", memory_budget_bytes=OPS_BUDGET,
+            verify=True, use_kernels=True,
+        )
+        verify_launches = launch_counts()
+        require(verify_launches["rmi_bucket"] == 1,
+                f"the join's verify launched {verify_launches}")
+        dedup = operators.external_dedup(
+            su, f"{su}.dedup", counts=True, memory_budget_bytes=OPS_BUDGET)
+        group = operators.external_groupby(
+            su, f"{su}.groupby", agg="sum",
+            value_offset=lines.KEYED_KEY_BYTES,
+            value_width=lines.KEYED_VALUE_BYTES,
+            memory_budget_bytes=OPS_BUDGET)
+        paths = (sa, sb, su, f"{sa}.join", f"{su}.dedup", f"{su}.groupby")
+        shas[name] = [sha256(p) for p in paths]
+        h = [_manifest_hash(p) for p in paths]
+        require(h[0] == h[1] == h[3] and h[2] == h[4] == h[5],
+                f"an output's manifest model_hash differs from its "
+                f"inputs': {h}")
+        rates = ", ".join(f"{s.rate_mb_s():.1f}" for s in (*st_ab, st_u))
+        log(f"ops: lines, {name} sorts: 3 co-partitioned sorts in "
+            f"{sort_s:.3f} s ({rates} MB/s; "
+            f"{[len(s.partition_counts) for s in (*st_ab, st_u)]} "
+            f"partitions, executors {[s.executor for s in (*st_ab, st_u)]}),"
+            f" launches {sort_launches}")
+        for st in (join, dedup, group):
+            log(f"ops: lines, {name} sorts: {st.op} {st.n_left}"
+                + (f" x {st.n_right}" if st.n_right else "")
+                + f" -> {st.n_out} records in {st.wall_seconds:.3f} s "
+                f"({st.rate_mb_s():.1f} MB/s in, {st.spill_fallbacks} "
+                f"spill fallbacks)")
+        log(f"ops: lines, {name} sorts: verify launches {verify_launches}")
+        for p in paths:
+            os.unlink(p)
+            os.unlink(p + ".manifest.npz")
+    for p in (a, b, u):
+        os.unlink(p)
+    os.rmdir(d)
+    require(shas["card"] == shas["host"],
+            f"line operator bytes differ from the host executor's: {shas}")
+    log(f"ops: lines, every sorted run and output equal to the host "
+        f"executor's; phase {time.perf_counter() - t0:.1f} s")
+
+
+def phase_ops_fixed(torch, tmp: str) -> None:
+    """A 500 MB fixed-format join on the card: co-partitioned sorts at
+    the main path's shapes, the kernel boundary check, an output count
+    equal to a NumPy oracle and keys in memcmp order."""
+    import numpy as np
+
+    from repro_torch.core import operators
+    from repro_torch.core.config import SortConfig
+    from repro_torch.data import gensort, lines
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    key_space = OPS_FIXED // 4
+    loff, roff = lines.join_offsets(key_space, OPS_SELECTIVITY)
+    a, b = (os.path.join(tmp, f"fixed_{x}.bin") for x in "ab")
+    lines.write_keyed_records(a, OPS_FIXED, key_space=key_space,
+                              key_offset=loff, seed=11)
+    lines.write_keyed_records(b, OPS_FIXED, key_space=key_space,
+                              key_offset=roff, seed=23)
+    # the oracle: sum over shared keys of left count x right count
+    ua, ca = np.unique(gensort.read_records(a)[:, :10].copy().view("S10"),
+                       return_counts=True)
+    ub, cb = np.unique(gensort.read_records(b)[:, :10].copy().view("S10"),
+                       return_counts=True)
+    _, ia, ib = np.intersect1d(ua, ub, assume_unique=True,
+                               return_indices=True)
+    want_n = int((ca[ia].astype(np.int64) * cb[ib]).sum())
+    log(f"ops: fixed, wrote 2 x {OPS_FIXED} keyed records and counted "
+        f"{ia.size} shared keys in {time.perf_counter() - t0:.1f} s")
+    shas = {}
+    for name, executor in (("host", "host"), ("card", "auto")):
+        outs = [f"{p}.{name}.sorted" for p in (a, b)]
+        prof = start_device_trace(torch) if name == "card" else None
+        ops.reset_launches()
+        t1 = time.perf_counter()
+        _, sts = operators.sort_co_partitioned(
+            [a, b], outs, SortConfig(executor=executor))
+        torch.cuda.synchronize()
+        sort_s = time.perf_counter() - t1
+        launches = launch_counts()
+        if name == "card":
+            log_device_time(prof, "ops: fixed, card sorts", sort_s)
+        shas[name] = [sha256(p) for p in outs]
+        log(f"ops: fixed, {name} sorts: 2 x {OPS_FIXED} records in "
+            f"{sort_s:.3f} s ({', '.join(f'{s.rate_mb_s():.1f}' for s in sts)}"
+            f" MB/s; partitions {[s.partition_counts for s in sts]}, "
+            f"executor {sts[0].executor}, dispatches "
+            f"{[s.device_dispatches for s in sts]}, batch occupancy "
+            f"{[round(s.batch_occupancy, 4) for s in sts]}, fallbacks "
+            f"{[s.fallbacks for s in sts]}), launches {launches}")
+        if name == "host":
+            for p in outs:
+                os.unlink(p)
+                os.unlink(p + ".manifest.npz")
+    require(shas["card"] == shas["host"],
+            f"fixed co-partitioned sorts differ from the host's: {shas}")
+    for k in ("encode_keys", "rmi_bucket", "sort_rows"):
+        require(launches[k] > 0, f"fixed co-partitioned sorts never "
+                                 f"launched {k}")
+    sa, sb = outs
+    out = os.path.join(tmp, "fixed.join")
+    ops.reset_launches()
+    st = operators.external_join(sa, sb, out, verify=True, use_kernels=True)
+    verify_launches = launch_counts()
+    require(verify_launches["rmi_bucket"] == 1,
+            f"the fixed join's verify launched {verify_launches}")
+    require(st.n_out == want_n, f"join wrote {st.n_out} records, the "
+                                f"oracle counts {want_n}")
+    rec = np.fromfile(out, dtype=np.uint8).reshape(st.n_out, -1)
+    kv = rec[:, :10].copy().view("S10").reshape(-1)
+    require(bool((kv[:-1] <= kv[1:]).all()), "join output out of order")
+    require(_manifest_hash(out) == _manifest_hash(sa) == _manifest_hash(sb),
+            "fixed join manifest model_hash differs from its inputs'")
+    log(f"ops: fixed, {st.op} {st.n_left} x {st.n_right} -> {st.n_out} "
+        f"records (= the oracle, memcmp order) of {rec.shape[1]} bytes in "
+        f"{st.wall_seconds:.3f} s ({st.rate_mb_s():.1f} MB/s in, "
+        f"{st.spill_fallbacks} spill fallbacks) over {st.n_partitions} "
+        f"partitions; verify launches {verify_launches}")
+    for p in (a, b, sa, sb, out):
+        os.unlink(p)
+    for p in (sa, sb, out):
+        os.unlink(p + ".manifest.npz")
+    log(f"ops: fixed, phase {time.perf_counter() - t0:.1f} s")
+
+
 def checksum_file(validate, gensort, path: str) -> int:
     """validate.checksum over the whole file, summed chunk by chunk (the
     checksum is a sum of per-record hashes mod 2**64)."""
@@ -604,6 +999,20 @@ def start_device_trace(torch):
         log(f"main: profiler unavailable ({e})")
         return None
     return prof
+
+
+def log_device_time(prof, what: str, wall: float) -> None:
+    """Stop a trace from ``start_device_trace`` and log its device time
+    beside ``wall`` seconds, with the top kernels."""
+    if prof is None:
+        log(f"{what}: device busy share not measured")
+        return
+    prof.__exit__(None, None, None)
+    busy, top = device_time(prof)
+    log(f"{what}: device busy {busy * 1e3:.3f} ms of {wall:.3f} s wall = "
+        f"{busy / wall:.4%} (torch.profiler)")
+    for sec, name, count in top:
+        log(f"{what}:   {sec * 1e3:9.3f} ms  x{count:<4d} {name[:90]}")
 
 
 def device_time(prof) -> tuple[float, list]:
@@ -644,6 +1053,7 @@ def main() -> int:
               file=sys.stderr)
         return 3
 
+    t_start = time.perf_counter()
     # 1. build
     build.library()
     info = build.build_info
@@ -731,6 +1141,20 @@ def main() -> int:
         require(shas["cuda"][0] == shas["host"][0], f"outputs differ: {shas}")
         require(shas["cuda"][1] == "batched", f"card run used {shas['cuda'][1]}")
         log(f"bytes: 1M uniform records, card == host, sha256 {shas['cuda'][0]}")
+        want = shas["host"][0]
+        for name in shas:
+            os.unlink(os.path.join(tmp, f"{name}.sorted"))
+        phase_per_partition(torch, inp, refsum, want, tmp)
+
+        # 6. the model cache; 7. the mergesort baseline
+        phase_cache(torch, inp, want, tmp)
+        phase_mergesort(inp, want, tmp)
+        os.unlink(inp)
+
+        # 8.-9. the merge-free operators
+        phase_ops_lines(torch, tmp)
+        phase_ops_fixed(torch, tmp)
+    log(f"smoke: every phase ok in {time.perf_counter() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

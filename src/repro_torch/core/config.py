@@ -12,7 +12,8 @@
 
 Bare legacy keywords to ``sort_file`` still work through
 :func:`coerce_sort_config` (one ``DeprecationWarning`` per process).
-The launchers (``launch/query.py``, ``launch/serve.py``) build their
+The launchers (``launch/query.py``, ``launch/serve.py``,
+``launch/ops.py``) build their
 argument parsers from the same dataclasses with
 :func:`add_sort_cli_args` / :func:`add_serve_cli_args` and read them
 back with :func:`sort_config_from_args` / :func:`serve_config_from_args`.
@@ -106,7 +107,7 @@ class ExecutorConfig:
     per-partition sorts, on which device, and how its super-batches are
     bounded."""
 
-    executor: str = "auto"  # auto | host | batched
+    executor: str = "auto"  # auto | host | batched | per_partition
     device_sort: bool = False
     use_kernels: bool = False
     batch_slots: int = 0  # 0 -> executor default
@@ -171,7 +172,7 @@ def add_sort_cli_args(ap) -> None:
     ap.add_argument("--partitions", type=int, default=d.n_partitions,
                     help="partition count (0: planner auto-tunes)")
     ap.add_argument("--sort-executor", default=d.executor,
-                    choices=("auto", "host", "batched"),
+                    choices=("auto", "host", "batched", "per_partition"),
                     help="sort-executor seam selection")
     ap.add_argument("--partitioner", default=d.partitioner,
                     choices=("auto", "model", "splitter"),

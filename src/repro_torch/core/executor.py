@@ -3,11 +3,16 @@ sort implementation (port of ``src/repro/core/executor.py``; DESIGN.md
 §10).
 
 An executor consumes a stream of ``(tag, RecordBlock)`` items and yields
-``(tag, sorted RecordBlock)``.  Two implementations are ported:
+``(tag, sorted RecordBlock)``.  Three implementations are ported:
 
 * :class:`HostSortExecutor` — the host LearnedSort (``sort_host``), one
   NumPy pass per partition, zero device dispatches.  Its output defines
   byte-identity.
+* :class:`PerPartitionDeviceExecutor` — the historical device path: one
+  ``learned_sort.sort_device`` chain (RMI kernel → bucket grid → row
+  sort kernel → compaction) per partition, padded to a power of two,
+  with one wait on the device each.  The baseline the batched executor
+  is measured against.
 * :class:`BatchedDeviceExecutor` — packs partitions into fixed-shape
   super-batches with segment ids and sorts each with one call of the
   fused graph (``kernels/fused.py``): on a CUDA device the grid graph
@@ -20,8 +25,8 @@ An executor consumes a stream of ``(tag, RecordBlock)`` items and yields
   batch's staging buffer, so the host never overwrites bytes a copy
   has not yet read.
 
-``PerPartitionDeviceExecutor`` and ``MeshBatchedExecutor`` are not
-ported yet.  Every executor produces output byte-identical to the host
+``MeshBatchedExecutor`` (the multi-GPU sort) is not ported yet.
+Every executor produces output byte-identical to the host
 path: the stable memcmp order of the full key window, with the
 touch-up beyond byte 8 applied in the executor's epilogue.
 """
@@ -34,8 +39,8 @@ from collections import deque
 import numpy as np
 import torch
 
-from repro_torch.core import learned_sort, rmi
-from repro_torch.core.encoding import ENCODED_BYTES
+from repro_torch.core import encoding, learned_sort, rmi
+from repro_torch.core.encoding import ENCODED_BYTES, SENTINEL
 from repro_torch.core.format import RecordBlock
 from repro_torch.kernels import fused
 
@@ -108,15 +113,47 @@ def _memcmp_touchup(keys: np.ndarray, perm: np.ndarray) -> np.ndarray:
     return perm
 
 
-def sort_partition(model: rmi.RMIParams, block: RecordBlock) -> RecordBlock:
-    """Sort one partition's records with the host LearnedSort (the
-    reference's host branch; its per-partition device chain is not
-    ported yet).  Empty and single-record partitions short-circuit.
+def sort_partition(
+    model: rmi.RMIParams,
+    block: RecordBlock,
+    *,
+    device: "torch.device | None" = None,
+    executor: "SortExecutor | None" = None,
+) -> RecordBlock:
+    """Sort one partition's records: the host LearnedSort, or with a
+    ``device`` the per-partition device chain (``model`` on that device;
+    an overflow that took the chain's stable fallback is counted in
+    ``executor.fallbacks``).
+
     Only the key-prefix matrix is sorted; the permutation then gathers
-    the record bodies in one ``take``."""
+    the (possibly variable-length) record bodies in one ``take``.
+    Empty and single-record partitions short-circuit before any device
+    dispatch.
+    """
     if block.n_records <= 1:
         return block
-    perm = learned_sort.sort_host(model, np.ascontiguousarray(block.keys))
+    keys = np.ascontiguousarray(block.keys)
+    if device is None:
+        return block.take(learned_sort.sort_host(model, keys))
+    m = block.n_records
+    # pad to the next power of two, as the reference does to bound its
+    # compiled shapes; here it keeps the bucket and row counts its own.
+    # Padding words are SENTINEL zero-extended (never -1), so they sort
+    # after every real key and are dropped by the perm < m filter.
+    m_pad = learned_sort._next_pow2(m)
+    words = np.full((2, m_pad), SENTINEL, dtype=np.int64)
+    words[0, :m], words[1, :m] = encoding.encode_np(keys)
+    if executor is not None:
+        executor._count_dispatch(m_pad, m, ("per_partition", m_pad))
+    words_d = torch.from_numpy(words).to(device)
+    _, _, perm, overflowed = learned_sort.sort_device(
+        model, words_d[0], words_d[1], return_overflow=True
+    )
+    if overflowed and executor is not None:
+        executor.fallbacks += 1
+    perm = perm.cpu().numpy()
+    perm = perm[perm < m]  # drop sentinel padding
+    perm = _memcmp_touchup(keys, perm)
     return block.take(perm)
 
 
@@ -130,6 +167,30 @@ class HostSortExecutor(SortExecutor):
         for tag, block in items:
             with self._timer():
                 block = sort_partition(self.model, block)
+            yield tag, block
+
+
+class PerPartitionDeviceExecutor(SortExecutor):
+    """Historical device path: one ``sort_device`` chain per partition
+    (the dispatch-count baseline the batched executor is measured
+    against).  On a CUDA device the chain runs the RMI and row-sort
+    kernels; on the CPU their plain versions.  ``device`` defaults to
+    the card and raises where there is none."""
+
+    name = "per_partition"
+    parallel_safe = True
+
+    def __init__(self, model, *, device="cuda", clock=None):
+        self.device = resolve_device(device)
+        # one upload of the leaf tables; every partition reuses them
+        super().__init__(model.to(self.device), clock=clock)
+
+    def sort_iter(self, items):
+        for tag, block in items:
+            with self._timer():
+                block = sort_partition(
+                    self.model, block, device=self.device, executor=self
+                )
             yield tag, block
 
 
@@ -428,8 +489,8 @@ def make_executor(
     there is none).  ``executor="auto"`` resolves by device: on a CUDA
     device, the batched executor on the grid graph with the kernels; on
     the CPU, as the reference does on its CPU backend (host unless
-    ``device_sort``/``use_kernels``, then batched).  ``"host"`` and
-    ``"batched"`` force an implementation.
+    ``device_sort``/``use_kernels``, then batched).  ``"host"``,
+    ``"batched"`` and ``"per_partition"`` force an implementation.
     """
     if config is not None:
         device_sort = device_sort or config.device_sort
@@ -457,8 +518,11 @@ def make_executor(
         return BatchedDeviceExecutor(
             model, device=dev, use_kernels=use_kernels, **kw
         )
-    if choice in ("per_partition", "mesh"):
+    if choice == "per_partition":
+        return PerPartitionDeviceExecutor(model, device=dev, clock=clock)
+    if choice == "mesh":
         raise NotImplementedError(f"executor {choice!r} is not ported yet")
     raise ValueError(
-        f"unknown executor {executor!r} (expected auto|host|batched)"
+        f"unknown executor {executor!r} "
+        f"(expected auto|host|batched|per_partition)"
     )

@@ -9,10 +9,29 @@ kernels), then positioned parallel writes.
 
 from __future__ import annotations
 
+import time
+
 from repro_torch.core.config import SortConfig, coerce_sort_config
 from repro_torch.core.pipeline import SortPipelineConfig, SortStats, run_pipeline
 
 __all__ = ["SortConfig", "SortStats", "SortPipelineConfig", "sort_file"]
+
+
+class _Timer:
+    """Accumulating phase timer used by the sequential mergesort
+    baseline, which keeps single-threaded accounting (a copy of the
+    reference's)."""
+
+    def __init__(self, stats: SortStats, phase: str):
+        self.stats, self.phase = stats, phase
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        self.stats.phase_seconds[self.phase] = self.stats.phase_seconds.get(
+            self.phase, 0.0
+        ) + (time.perf_counter() - self.t0)
 
 
 def sort_file(
@@ -36,7 +55,9 @@ def sort_file(
     ``manifest=True`` also writes ``<output>.manifest.npz``, the learned
     index that ``repro_torch.serve.index.SortedFileIndex`` serves; its
     layout is the reference's, so either package loads it.
-    ``model_cache`` is not ported yet and raises ``NotImplementedError``.
+    ``model_cache`` (``repro_torch.core.model_cache.ModelCache``)
+    warm-starts the Train stage across sorts; ``SortStats.model_cache``
+    records hit/miss and ``SortStats.model_hash`` the model used.
     """
     cfg = coerce_sort_config(config, overrides)
     return run_pipeline(input_path, output_path, cfg.to_pipeline())

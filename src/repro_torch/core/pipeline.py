@@ -16,9 +16,11 @@ With ``emit_manifest`` the run ends by writing
 ``<output>.manifest.npz`` (``repro_torch.core.manifest``), the learned
 index that ``repro_torch.serve`` answers queries from; an empty input
 sorted under a pre-trained model gets one too, with zero counts, so it
-stays aligned with its co-partitioned siblings.  Not ported yet: the
-warm-start model cache (``model_cache``); asking for it raises
-``NotImplementedError``.
+stays aligned with its co-partitioned siblings.  A ``model_cache``
+(``repro_torch.core.model_cache.ModelCache``) warm-starts the Train
+stage: a cached model the fresh sample trusts is reused, with the leaf
+tables its first sort uploaded (``RMIParams.to`` keeps one copy per
+device).
 """
 
 from __future__ import annotations
@@ -110,7 +112,8 @@ class SortPipelineConfig:
     model: "rmi.RMIParams | None" = None
     # sort-executor selection (core/executor.make_executor): auto ->
     # batched on a CUDA device; on the CPU host unless
-    # device_sort/use_kernels, then batched; host | batched force one.
+    # device_sort/use_kernels, then batched; host | batched |
+    # per_partition force one.
     executor: str = "auto"
     # pre-sort planner (core/planner.py, DESIGN.md §11): "auto" lets the
     # sample diagnostics pick between the learned-model partitioner and
@@ -120,7 +123,10 @@ class SortPipelineConfig:
     partitioner: str = "auto"
     # batched-executor super-batch segment cap; 0 -> auto-tuned
     batch_segments: int = 0
-    # warm-start model cache: not ported yet (must stay None)
+    # warm-start model cache (core/model_cache.ModelCache, DESIGN.md
+    # §12): reuse a cached RMI when the fresh sample's CDF error against
+    # it stays inside the planner's band; retrain (and store) otherwise.
+    # None -> always train.  Inert when ``model`` is pre-trained.
     model_cache: "object | None" = None
     # where the Sort stage runs: "cuda" (raises without a GPU) or "cpu"
     device: str = "cuda"
@@ -185,8 +191,6 @@ def run_pipeline(
         raise ValueError(
             f"n_writers must be >= 0 (0 = auto), got {cfg.n_writers}"
         )
-    if cfg.model_cache is not None:
-        raise NotImplementedError("the model cache is not ported yet")
     device = resolve_device(cfg.device)
     fmt = cfg.fmt if cfg.fmt is not None else GENSORT
     stats = SortStats()
@@ -247,7 +251,20 @@ def run_pipeline(
         with clock.timer("train"):
             sample = fmt.sample_keys(input_path, n_est, cfg.sample_frac)
             clock.add_io(read=sample.shape[0] * fmt.key_width)
-            model = _train_stage(sample, cfg.n_leaf)
+            # warm start (DESIGN.md §12): reuse a cached model the fresh
+            # sample trusts under the planner's skew band; train + store
+            # otherwise.  Reuse changes partition boundaries at most —
+            # never the sorted output bytes.
+            model = None
+            if cfg.model_cache is not None:
+                model, stats.model_hash = cfg.model_cache.lookup(
+                    sample, n_partitions
+                )
+                stats.model_cache = "hit" if model is not None else "miss"
+            if model is None:
+                model = _train_stage(sample, cfg.n_leaf)
+                if cfg.model_cache is not None:
+                    stats.model_hash = cfg.model_cache.store(model)
         # --- Plan stage (DESIGN.md §11): diagnose the sample, pick the
         # partitioner (learned model vs sample splitter), tune the knobs
         with clock.timer("plan"):

@@ -70,12 +70,23 @@ class RMIParams:
         return self.leaf_slope.device
 
     def to(self, device) -> "RMIParams":
-        """The model with its leaf tables on ``device`` (one upload per
-        sort; scalars stay on the CPU)."""
-        return dataclasses.replace(
-            self,
-            **{f: getattr(self, f).to(device) for f in _LEAF_FIELDS},
-        )
+        """The model with its leaf tables on ``device`` (scalars stay on
+        the CPU).  A model already there is returned as it is; a copy is
+        made once per device and kept on this model, so every later call
+        (the next sort under a cached model) returns the same copy, with
+        its packed kernel table, and uploads nothing."""
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        if dev == self.device:
+            return self
+        copies = self.__dict__.setdefault("_copies", {})
+        if dev not in copies:
+            copies[dev] = dataclasses.replace(
+                self,
+                **{f: getattr(self, f).to(dev) for f in _LEAF_FIELDS},
+            )
+        return copies[dev]
 
     def ftable(self) -> torch.Tensor:
         """(L, 5) f32 leaf table: slope, intercept, band lo/hi, inv_range."""

@@ -57,6 +57,25 @@ def rmi_bucket(
     return rmi.rmi_bucket_plain(params, hi, lo, n_buckets)
 
 
+def rmi_bucket_pair(
+    params: rmi_lib.RMIParams,
+    hi_a: torch.Tensor,
+    lo_a: torch.Tensor,
+    hi_b: torch.Tensor,
+    lo_b: torch.Tensor,
+    n_buckets: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dual-input bucketing: both co-partitioned inputs' keys through ONE
+    :func:`rmi_bucket` call (one kernel launch, counted once), split
+    back after.  The bucket id is a function of the key alone, so the
+    two inputs can share one batch (DESIGN.md §9)."""
+    n_a = hi_a.shape[0]
+    out = rmi_bucket(
+        params, torch.cat([hi_a, hi_b]), torch.cat([lo_a, lo_b]), n_buckets
+    )
+    return out[:n_a], out[n_a:]
+
+
 def rmi_predict_pos(
     params: rmi_lib.RMIParams,
     hi: torch.Tensor,

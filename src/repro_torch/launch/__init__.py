@@ -1,2 +1,3 @@
 """Command-line entry points of the port: ``python -m
-repro_torch.launch.query`` and ``python -m repro_torch.launch.serve``."""
+repro_torch.launch.query``, ``python -m repro_torch.launch.serve`` and
+``python -m repro_torch.launch.ops``."""

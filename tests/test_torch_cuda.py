@@ -1,6 +1,8 @@
 """The port's CUDA kernels and device path on a card: each kernel against
-its plain PyTorch version, bit for bit, the batched executor and
-``sort_file`` on the card against the host executor's bytes, and a CUDA
+its plain PyTorch version, bit for bit, the batched and per-partition
+executors and ``sort_file`` on the card against the host executor's
+bytes, the per-partition chain and the dual-input RMI call against
+their plain versions, a cached model reused on the card, and a CUDA
 ``SortedFileIndex`` against a CPU one.
 
 Every test needs a CUDA device (a CUDA kernel has no CPU mode) and skips
@@ -18,14 +20,17 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import external, rmi as trmi  # noqa: E402
+from repro_torch.core import encoding, external, learned_sort  # noqa: E402
+from repro_torch.core import operators, rmi as trmi  # noqa: E402
 from repro_torch.core.config import SortConfig  # noqa: E402
 from repro_torch.core.encoding import SENTINEL  # noqa: E402
 from repro_torch.core.executor import (  # noqa: E402
     BatchedDeviceExecutor,
     HostSortExecutor,
+    PerPartitionDeviceExecutor,
     make_executor,
 )
+from repro_torch.core.model_cache import ModelCache  # noqa: E402
 from repro_torch.core.format import GENSORT  # noqa: E402
 from repro_torch.data import gensort  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
@@ -430,3 +435,125 @@ def test_sort_file_on_card_matches_host(cuda, tmp_path, n_readers):
         if name == "card":
             assert stats.executor == "batched" and stats.device_dispatches > 0
     assert shas["card"] == shas["host"]
+
+
+def test_rmi_bucket_pair_one_launch(cuda):
+    keys = gensort.skewed_keys(5000, seed=3)
+    model = trmi.fit(keys, n_leaf=256)
+    words = [t.to(cuda) for t in encoding.encode(torch.from_numpy(keys))]
+    hi, lo = (w.contiguous() for w in words)
+    ops.reset_launches()
+    a, b = ops.rmi_bucket_pair(model.to(cuda), hi[:1234], lo[:1234],
+                               hi[1234:], lo[1234:], 64)
+    assert ops.rmi_bucket.launches == 1
+    want = rmi.rmi_bucket_plain(model, hi.cpu(), lo.cpu(), 64)
+    assert torch.equal(torch.cat([a, b]).cpu(), want)
+
+
+@pytest.mark.parametrize("n", [3, 4097, 1 << 20])
+@pytest.mark.parametrize("kind", ["uniform", "skewed"])
+def test_sort_device_kernels_equal_plain(cuda, n, kind):
+    """The chain on the card (RMI and row-sort kernels; 2,048-wide rows
+    at 2**20) equals the same chain on the CPU (their plain versions),
+    overflow fallback included (2**20 skewed keys flood a bucket)."""
+    gen = gensort.skewed_keys if kind == "skewed" else gensort.uniform_keys
+    keys = gen(n, seed=n)
+    model = trmi.fit(keys[:: max(1, n // 65536)], n_leaf=max(1024, n // 256))
+    hi, lo = encoding.encode(torch.from_numpy(keys))
+    *want, want_overflow = learned_sort.sort_device(
+        model, hi, lo, return_overflow=True
+    )
+    ops.reset_launches()
+    *got, overflow = learned_sort.sort_device(
+        model.to(cuda), hi.to(cuda), lo.to(cuda), return_overflow=True
+    )
+    assert overflow == want_overflow
+    if kind == "uniform":  # the compacted rows are the answer
+        assert not overflow
+    # the rows are sorted only when no bucket overflowed
+    assert (ops.rmi_bucket.launches, ops.sort_rows.launches) == (
+        1, int(not overflow)
+    )
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize(
+    "n,skewed,budget,parts",
+    [
+        (50_000, True, 2 << 20, 0),  # padded partitions: stable fallback
+        (1 << 16, False, 256 << 20, 1),  # one 2**16 partition: the rows
+    ],
+)
+def test_per_partition_executor_on_card(cuda, tmp_path, n, skewed, budget,
+                                        parts):
+    """The "cuda" default, and sort_file through one chain a partition
+    writes the host executor's bytes, whether the partition's padding
+    overflows its last bucket or the compacted rows are the answer."""
+    model = trmi.fit(gensort.uniform_keys(4096, seed=0), n_leaf=64)
+    for ex in (make_executor(model, executor="per_partition"),
+               PerPartitionDeviceExecutor(model)):
+        assert ex.device.type == "cuda" and ex.model.device.type == "cuda"
+    inp = str(tmp_path / "in.bin")
+    gensort.write_file(inp, n, skewed=skewed, seed=12)
+    shas = {}
+    ops.reset_launches()
+    for name, cfg in (
+        ("card", SortConfig(executor="per_partition", n_partitions=parts,
+                            memory_budget_bytes=budget)),
+        ("host", SortConfig(device="cpu", executor="host")),
+    ):
+        out = str(tmp_path / f"{name}.bin")
+        stats = external.sort_file(inp, out, config=cfg)
+        with open(out, "rb") as f:
+            shas[name] = hashlib.sha256(f.read()).hexdigest()
+        if name == "card":
+            assert stats.executor == "per_partition"
+            assert ops.rmi_bucket.launches == stats.device_dispatches > 0
+            assert ops.sort_rows.launches == (
+                stats.device_dispatches - stats.fallbacks
+            )
+            if parts == 1:
+                assert (stats.device_dispatches, stats.fallbacks) == (1, 0)
+    assert shas["card"] == shas["host"]
+
+
+def test_cached_model_stays_on_card(cuda, tmp_path):
+    """A cache hit sorts with the device copy (and packed kernel table)
+    the first sort uploaded."""
+    inp = str(tmp_path / "in.bin")
+    gensort.write_file(inp, 30_000, seed=4)
+    cache = ModelCache()
+    shas = []
+    for k in range(2):
+        out = str(tmp_path / f"{k}.bin")
+        st = external.sort_file(inp, out, config=SortConfig(
+            model_cache=cache, memory_budget_bytes=2 << 20))
+        assert st.model_cache == ("miss", "hit")[k]
+        with open(out, "rb") as f:
+            shas.append(hashlib.sha256(f.read()).hexdigest())
+        if k == 0:
+            copy = next(iter(cache._entries.values())).to(cuda)
+            table = copy.kernel_table
+    entry = next(iter(cache._entries.values()))
+    assert entry.to(cuda) is copy and copy.kernel_table is table
+    assert shas[0] == shas[1]
+
+
+def test_verify_co_partitioning_on_card(cuda, tmp_path):
+    from repro_torch.core.format import LineFormat
+    from repro_torch.data import lines
+
+    a, b = str(tmp_path / "a.txt"), str(tmp_path / "b.txt")
+    lines.write_keyed_lines(a, 20_000, key_space=5_000, seed=11)
+    lines.write_keyed_lines(b, 20_000, key_space=5_000, key_offset=4_500,
+                            seed=23)
+    operators.sort_co_partitioned(
+        [a, b], [a + ".s", b + ".s"], fmt=LineFormat(max_key_bytes=12),
+        memory_budget_bytes=1 << 20, n_partitions=7,
+    )
+    left, right = operators._Run.open(a + ".s"), operators._Run.open(b + ".s")
+    ops.reset_launches()
+    n = operators.verify_co_partitioning(left, right, use_kernels=True)
+    assert ops.rmi_bucket.launches == 1
+    assert n == operators.verify_co_partitioning(left, right) > 0

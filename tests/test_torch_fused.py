@@ -203,8 +203,10 @@ def test_make_executor_resolves_like_jax_on_cpu():
     assert isinstance(ex, tex.BatchedDeviceExecutor) and not ex.flat
     with pytest.raises(ValueError):
         tex.make_executor(model, device="cpu", executor="warp_drive")
+    ex = tex.make_executor(model, device="cpu", executor="per_partition")
+    assert isinstance(ex, tex.PerPartitionDeviceExecutor)
     with pytest.raises(NotImplementedError):
-        tex.make_executor(model, device="cpu", executor="per_partition")
+        tex.make_executor(model, device="cpu", executor="mesh")
 
 
 def test_make_executor_cuda_needs_a_card():

@@ -108,13 +108,13 @@ def test_cuda_requested_without_a_card_raises(tmp_path_factory, tmp_path):
 
 
 def test_unported_features_raise(tmp_path_factory, tmp_path):
-    """The model cache is not ported yet (manifests are: see
-    tests/test_torch_manifest.py)."""
+    """The multi-GPU executor is not ported yet (the model cache is: see
+    tests/test_torch_model_cache.py)."""
     inp, _, _ = _reference(tmp_path_factory, "uniform", "coalesced")
     cfg = SortConfig(device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="mesh"):
         text.sort_file(
-            inp, str(tmp_path / "o.bin"), config=cfg, model_cache=object()
+            inp, str(tmp_path / "o.bin"), config=cfg, executor="mesh"
         )
 
 
@@ -131,7 +131,9 @@ def test_port_imports_without_jax_or_repro():
             repro_torch.__path__, "repro_torch.")]
         for name in names:
             importlib.import_module(name)
-        assert "repro_torch.serve.server" in names, names
+        for name in ("repro_torch.serve.server", "repro_torch.core.operators",
+                     "repro_torch.launch.ops"):
+            assert name in names, names
         bad = [m for m in sys.modules
                if (m == "jax" or m.startswith(("jax.", "jaxlib", "repro.")))
                and sys.modules[m] is not None]
