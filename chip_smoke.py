@@ -57,7 +57,23 @@ Phases, one line each (any failure exits non-zero):
    a side, key space 625,000, selectivity 0.1) co-partition-sorted on
    the card under the default ``SortConfig()`` (bytes equal to the host
    executor's), joined with the kernel boundary check; the output count
-   equals a NumPy oracle and its keys are in memcmp order.
+   equals a NumPy oracle and its keys are in memcmp order;
+10. dist (run right after the main phase, on its file) — the mesh-scale
+   sort: (a) ``terasort.sort_file_distributed(executor="batched")`` on
+   an NCCL process group of world size 1 over the 1 GB file, its sha256
+   equal to the main phase's output; (c) ``distributed.make_sort_fn`` at
+   2**20 skewed keys on the same group; then (b) four gloo ranks sharing
+   the card, spawned by this script, sorting a 1,000,000-record skewed
+   file under the batched and the mesh executors (sha256 equal to the
+   host executor's, std/mean of the ranges below 0.35, RMI launched on
+   every rank) and running ``make_sort_fn`` at 2**20 keys a rank.  Every
+   kernel launch of (a) and (b) — the router's RMI, the final pass's
+   encode, RMI and row sorter, also where the pass then took the stable
+   fallback — is kept as the path made it and held bit-equal to its
+   plain version on those inputs, and (a)'s final-pass rows are timed.
+   Each ``make_sort_fn`` run holds the global order to ``np.lexsort``,
+   loses nothing, and holds the RMI kernel to its plain version on the
+   words each rank received.
 
 It then prints one JSON line describing each kernel (times from CUDA
 events, bounds from the bytes each call must move at 3.35 TB/s or its
@@ -68,6 +84,7 @@ result.
 """
 
 import asyncio
+import contextlib
 import hashlib
 import json
 import os
@@ -107,6 +124,10 @@ OPS_SELECTIVITY = 0.1
 # above, 8-256 for small batches of many segments; and the widest row
 BITONIC_SWEEP = ((16384, 512), (8192, 1024), (4096, 2048), (2048, 4096),
                  (1_048_576, 8), (2, 16384))
+# the distributed phase: gloo ranks sharing the card, their file, and the
+# keys a rank that make_sort_fn sorts
+DIST_RANKS, DIST_RECORDS, SORT_FN_KEYS = 4, 1_000_000, 1 << 20
+DIST_TIMEOUT_S = 300
 
 
 def log(msg: str) -> None:
@@ -976,6 +997,345 @@ def phase_ops_fixed(torch, tmp: str) -> None:
     log(f"ops: fixed, phase {time.perf_counter() - t0:.1f} s")
 
 
+def sort_fn_check(torch, mesh, n: int) -> dict:
+    """``make_sort_fn`` over ``mesh`` at ``n`` skewed keys a rank (every
+    rank makes the whole input from one seed and takes its shard): the
+    global order against ``np.lexsort``, ``lost``, the launches, and the
+    RMI kernel against its plain version on the words the rank received,
+    captured as ``sort_device`` got them."""
+    import numpy as np
+
+    from repro_torch.core import distributed, encoding, learned_sort, rmi
+    from repro_torch.data import gensort
+    from repro_torch.kernels import ops, rmi as krmi
+
+    world, rank = mesh.world_size, mesh.rank
+    keys = gensort.skewed_keys(n * world, seed=21)
+    model = rmi.fit(keys[:: max(1, keys.shape[0] // 65536)])
+    hi, lo = (w.astype(np.int64) for w in encoding.encode_np(keys))
+    s = slice(rank * n, (rank + 1) * n)
+    args = [torch.from_numpy(a[s]).to(mesh.device) for a in (hi, lo)]
+    args.append(torch.arange(n * world, dtype=torch.int32)[s].to(mesh.device))
+    chain, kept = learned_sort.sort_device, []
+
+    def keep(model, hi, lo, **kw):
+        got = chain(model, hi, lo, return_overflow=True, **kw)
+        kept.append((model, hi, lo, got[3]))
+        return got[:3]
+
+    learned_sort.sort_device = keep
+    try:
+        fn = distributed.make_sort_fn(mesh, ("data",), model, n)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()
+    finally:
+        learned_sort.sort_device = chain
+    m, rh, rl, overflow = kept[0]
+    nb, _ = learned_sort.grid_shape(rh.shape[0])
+    err = max_abs_err(torch, [krmi.rmi_bucket_cuda(m, rh, rl, nb).cpu()],
+                      [krmi.rmi_bucket_plain(m.to("cpu"), rh.cpu(), rl.cpu(), nb)])
+    full = [mesh.all_gather(t) for t in out]
+    res = {"seconds": seconds, "launches": launches, "rmi_err": err,
+           "fallbacks": int(overflow), "received": rh.shape[0],
+           "n_valid": full[3].reshape(-1).tolist(),
+           "lost": int(full[4].sum())}
+    if rank == 0:
+        gh, gl, gv = distributed.global_sorted_from_shards(*full[:4], world)
+        o = np.lexsort((lo, hi))
+        res["order_ok"] = bool(gh.shape[0] == n * world
+                               and (gh == hi[o]).all() and (gl == lo[o]).all()
+                               and np.unique(gv).shape[0] == n * world)
+    return res
+
+
+@contextlib.contextmanager
+def keep_launches():
+    """While active, every launch of the encode, RMI and row-sort kernels
+    keeps what the path gave the kernel and what it gave back, as
+    ``(entry, args, outputs)`` in the list it yields — including a
+    launch whose result the path then threw away for the stable
+    fallback."""
+    from repro_torch.kernels import bitonic, encode, rmi
+
+    kept, saved = [], []
+    for mod, name in ((encode, "encode_cuda"), (rmi, "rmi_bucket_cuda"),
+                      (bitonic, "sort_rows_cuda")):
+        fn = getattr(mod, name)
+        saved.append((mod, name, fn))
+
+        def keep(*args, _fn=fn, _name=name):
+            out = _fn(*args)
+            kept.append((_name, args, out))
+            return out
+
+        setattr(mod, name, keep)
+    try:
+        yield kept
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+# kept entry -> the wrapper whose launch count it matches
+KEPT_WRAPPER = {"encode_cuda": "encode_keys", "rmi_bucket_cuda": "rmi_bucket",
+                "sort_rows_cuda": "sort_rows"}
+
+
+def hold_kept(torch, kept: list, what: str) -> dict:
+    """Each kept launch's outputs against its kernel's plain version on
+    the same inputs, bit for bit (RMI's plain version on the host, as in
+    the other phases).  Returns the shapes held, by wrapper name."""
+    from repro_torch.kernels import bitonic, encode, rmi
+
+    plain = {
+        "encode_cuda": encode.encode_plain,
+        "rmi_bucket_cuda": lambda p, hi, lo, nb: rmi.rmi_bucket_plain(
+            p.to("cpu"), hi.cpu(), lo.cpu(), nb),
+        "sort_rows_cuda": bitonic.sort_rows_plain,
+    }
+    held: dict = {}
+    for name, args, out in kept:
+        got = out if isinstance(out, tuple) else (out,)
+        want = plain[name](*args)
+        want = want if isinstance(want, tuple) else (want,)
+        err = max_abs_err(torch, [g.cpu() for g in got],
+                          [w.cpu() for w in want])
+        shape = list(args[1 if name == "rmi_bucket_cuda" else 0].shape)
+        require(err == 0, f"{what}: {name} at {shape} differs from its "
+                          f"plain version by {err}")
+        held.setdefault(KEPT_WRAPPER[name], []).append(shape)
+    return held
+
+
+def require_held(held: dict, launches: dict, what: str) -> None:
+    """Every launch of the run was kept and held."""
+    for name in KEPT_WRAPPER.values():
+        require(len(held.get(name, ())) == launches[name],
+                f"{what}: held {len(held.get(name, ()))} {name} launches "
+                f"of {launches[name]}")
+
+
+def distributed_rank() -> None:
+    """One rank of phase (b)/(c): gloo over ranks sharing ``cuda:0``,
+    spawned by ``phase_distributed``; prints one ``RANK`` JSON line."""
+    import torch
+
+    from repro_torch.core import terasort
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as tmesh
+
+    env = os.environ
+    tmesh.initialize_multiprocess(
+        f"file://{env['DIST_STORE']}", int(env["WORLD_SIZE"]),
+        int(env["RANK"]), backend="gloo", device="cuda", timeout_s=120,
+    )
+    mesh = tmesh.make_data_mesh()
+    res = {"device": str(mesh.device)}
+    for ex in ("batched", "mesh"):
+        with keep_launches() as kept:
+            ops.reset_launches()
+            st = terasort.sort_file_distributed(
+                env["DIST_IN"], f"{env['DIST_IN']}.{ex}", mesh, executor=ex,
+                workdir=env["DIST_WORK"],
+            )
+            torch.cuda.synchronize()
+            launches = launch_counts()
+        held = hold_kept(torch, kept, f"(b) {ex} on rank {mesh.rank}")
+        kept.clear()
+        res[ex] = {"launches": launches, "wall": st.wall_seconds,
+                   "partition_counts": st.partition_counts,
+                   "fallbacks": st.fallbacks, "executor": st.executor,
+                   "dispatches": st.device_dispatches, "held": held}
+    res["sort_fn"] = sort_fn_check(torch, mesh, int(env["SORT_FN_KEYS"]))
+    print("RANK " + json.dumps(res), flush=True)
+    tmesh.exit_rank()
+
+
+def phase_distributed(torch, inp: str, refsum: int, want: str, n: int,
+                      tmp: str, results: dict) -> None:
+    """The mesh-scale sort on the card.  (a) ``sort_file_distributed``
+    on NCCL at world size 1 (NCCL puts no two ranks on one card) on the
+    main phase's file: its bytes.  (c, 1) ``make_sort_fn`` on the same
+    process group.  (b) and (c, 4): ``DIST_RANKS`` gloo ranks sharing
+    the card, spawned here: a ``DIST_RECORDS`` skewed file under the
+    batched and the mesh executors (host executor's bytes, equi-depth
+    ranges, RMI launched on every rank), then ``make_sort_fn``."""
+    import numpy as np
+
+    from repro_torch.core import external, terasort, validate
+    from repro_torch.core.config import SortConfig
+    from repro_torch.data import gensort
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as tmesh
+
+    t0 = time.perf_counter()
+    dist_launches = {}
+    # (a) NCCL, world size 1, in this process
+    tmesh.initialize_multiprocess(
+        f"file://{os.path.join(tmp, 'store_a')}", 1, 0, device="cuda",
+        timeout_s=120,
+    )
+    try:
+        mesh = tmesh.make_data_mesh()
+        require(mesh.backend == "nccl", f"backend {mesh.backend}")
+        out = os.path.join(tmp, "dist_a.sorted")
+        with keep_launches() as kept:
+            ops.reset_launches()
+            st = terasort.sort_file_distributed(
+                inp, out, mesh, executor="batched", workdir=tmp)
+            torch.cuda.synchronize()
+            dist_launches["a_nccl_w1_batched"] = launch_counts()
+        res = validate.validate_file(out, refsum, n)
+        require(res["ok"], f"(a) distributed output failed validation: {res}")
+        sha = sha256(out)
+        os.unlink(out)
+        require(sha == want, f"(a) distributed bytes {sha} != main {want}")
+        require(st.executor == "batched", f"(a) executor {st.executor}")
+        for name in ("encode_keys", "rmi_bucket", "sort_rows"):
+            require(dist_launches["a_nccl_w1_batched"][name] > 0,
+                    f"(a) {name} was never launched")
+        held = hold_kept(torch, kept, "(a)")
+        require_held(held, dist_launches["a_nccl_w1_batched"], "(a)")
+        log(f"dist: (a) every kernel launch of the run held bit-equal to "
+            f"its plain version on the inputs the path gave it: "
+            f"{ {k: sorted(set(map(tuple, v))) for k, v in held.items()} }")
+        time_final_rows(torch, kept)
+        kept.clear()
+        phases = {k: round(v, 3) for k, v in st.phase_seconds.items()}
+        log(f"dist: (a) sort_file_distributed NCCL world 1, {n} records, "
+            f"batched: sha256 == main, validated; wall {st.wall_seconds:.3f} "
+            f"s ({st.rate_mb_s():.1f} MB/s), route capacity retries + "
+            f"executor overflows {st.fallbacks}, dispatches "
+            f"{st.device_dispatches}, phases "
+            f"{json.dumps(phases)}, launches "
+            f"{dist_launches['a_nccl_w1_batched']}")
+        c1 = sort_fn_check(torch, mesh, SORT_FN_KEYS)
+    finally:
+        torch.distributed.destroy_process_group()
+    dist_launches["c_nccl_w1"] = c1["launches"]
+    require(c1["order_ok"] and c1["lost"] == 0 and c1["rmi_err"] == 0
+            and c1["launches"]["rmi_bucket"] > 0,
+            f"(c) make_sort_fn at world 1: {c1}")
+    log(f"dist: (c) make_sort_fn NCCL world 1, {SORT_FN_KEYS} skewed keys: "
+        f"order == np.lexsort, lost 0, RMI bit-equal to plain on the "
+        f"{c1['received']} received words, sort_device fallbacks "
+        f"{c1['fallbacks']} (SENTINEL capacity padding in the last bucket), "
+        f"{c1['seconds']:.3f} s, launches {c1['launches']}")
+
+    # (b), (c) gloo ranks sharing the card
+    path = os.path.join(tmp, "dist_b.bin")
+    gensort.write_file(path, DIST_RECORDS, skewed=True, seed=5)
+    host = path + ".host"
+    external.sort_file(path, host, config=SortConfig(executor="host"))
+    host_sha = sha256(host)
+    os.unlink(host)
+    work = os.path.join(tmp, "dist_work")
+    os.makedirs(work, exist_ok=True)
+    t1 = time.perf_counter()
+    outs = tmesh.spawn(
+        "import chip_smoke; chip_smoke.distributed_rank()",
+        DIST_RANKS, timeout_s=DIST_TIMEOUT_S, env={
+            "PYTHONPATH": os.pathsep.join([ROOT, os.path.join(ROOT, "src")]),
+            "DIST_STORE": os.path.join(tmp, "store_b"), "DIST_IN": path,
+            "DIST_WORK": work, "SORT_FN_KEYS": str(SORT_FN_KEYS),
+        },
+    )
+    ranks = [json.loads(next(x[5:] for x in o.splitlines()
+                             if x.startswith("RANK ")))
+             for o in outs]
+    job_s = time.perf_counter() - t1
+    refsum_b = checksum_file(validate, gensort, path)
+    for ex in ("batched", "mesh"):
+        out = f"{path}.{ex}"
+        require(validate.validate_file(out, refsum_b, DIST_RECORDS)["ok"],
+                f"(b) {ex} output failed validation")
+        sha = sha256(out)
+        os.unlink(out)
+        require(sha == host_sha, f"(b) {ex} bytes {sha} != host {host_sha}")
+        counts = np.array(ranks[0][ex]["partition_counts"])
+        spread = counts.std() / counts.mean()
+        require(spread < 0.35, f"(b) {ex} ranges {counts.tolist()}")
+        agreed = ("partition_counts", "fallbacks", "dispatches", "executor")
+        require(all(r[ex][k] == ranks[0][ex][k] for r in ranks for k in agreed),
+                f"(b) {ex}: ranks disagree on the counts")
+        require(all(r[ex]["launches"]["rmi_bucket"] > 0 for r in ranks),
+                f"(b) {ex}: a rank never launched RMI")
+        for i, r in enumerate(ranks):
+            require_held(r[ex]["held"], r[ex]["launches"],
+                         f"(b) {ex} rank {i}")
+        dist_launches[f"b_gloo_w{DIST_RANKS}_{ex}"] = {
+            k: sum(r[ex]["launches"][k] for r in ranks)
+            for k in ranks[0][ex]["launches"]
+        }
+        log(f"dist: (b) sort_file_distributed gloo x{DIST_RANKS} on "
+            f"{ranks[0]['device']}, {DIST_RECORDS} skewed records, {ex}: "
+            f"sha256 == host {sha}; ranges {counts.tolist()} (std/mean "
+            f"{spread:.4f}); walls "
+            f"{[round(r[ex]['wall'], 3) for r in ranks]} s; route capacity "
+            f"retries + executor overflows {ranks[0][ex]['fallbacks']}; "
+            f"dispatches "
+            f"{ranks[0][ex]['dispatches']}; launches by rank "
+            f"{[r[ex]['launches'] for r in ranks]}, each held bit-equal "
+            f"to its plain version on its own inputs, shapes by rank "
+            f"{[{k: sorted(set(map(tuple, v))) for k, v in r[ex]['held'].items()} for r in ranks]}")
+    c4 = [r["sort_fn"] for r in ranks]
+    require(c4[0]["order_ok"] and c4[0]["lost"] == 0
+            and all(c["rmi_err"] == 0 and c["launches"]["rmi_bucket"] > 0
+                    for c in c4),
+            f"(c) make_sort_fn at {DIST_RANKS} ranks: {c4}")
+    dist_launches[f"c_gloo_w{DIST_RANKS}"] = {
+        k: sum(c["launches"][k] for c in c4) for k in c4[0]["launches"]
+    }
+    log(f"dist: (c) make_sort_fn gloo x{DIST_RANKS}, {SORT_FN_KEYS} skewed "
+        f"keys a rank: order == np.lexsort, lost 0, n_valid "
+        f"{c4[0]['n_valid']}, RMI bit-equal to plain on every rank's "
+        f"received words, sort_device fallbacks "
+        f"{[c['fallbacks'] for c in c4]}, seconds "
+        f"{[round(c['seconds'], 3) for c in c4]}")
+    log(f"dist: (b)+(c) job of {DIST_RANKS} ranks {job_s:.1f} s")
+    os.unlink(path)
+    for key, name in (("encode", "encode_keys"), ("rmi_bucket", "rmi_bucket"),
+                      ("sort_rows", "sort_rows"),
+                      ("histogram", "bucket_histogram")):
+        results[key]["launches_distributed"] = {
+            run: by_name[name] for run, by_name in dist_launches.items()
+        }
+    log(f"dist: phase {time.perf_counter() - t0:.1f} s")
+
+
+def time_final_rows(torch, kept: list) -> None:
+    """The row sorter timed at the widest rows phase (a)'s final pass
+    gave it, on those rows: kernel, ``torch.sort`` and plain version,
+    beside the bound."""
+    from repro_torch.core import encoding
+    from repro_torch.kernels import bitonic
+
+    rows = [args for name, args, _ in kept if name == "sort_rows_cuda"]
+    hi, lo, val = max(rows, key=lambda a: a[0].numel())
+    r, c = hi.shape
+    geo = bitonic.launch_geometry(c)
+    out = [torch.empty_like(t) for t in (hi, lo, val)]
+    ms = cuda_ms(torch, raw_launch(
+        torch, "repro_sort_rows", hi, lo, val, *out, r, c, *geo,
+    ), reps=10)
+    packed = encoding.packed_key(hi, lo)
+    lib_ms = cuda_ms(
+        torch, lambda: torch.sort(packed, dim=1, stable=True), reps=5
+    )
+    plain_ms = cuda_ms(
+        torch, lambda: bitonic.sort_rows_plain(hi, lo, val), reps=3
+    )
+    stages = (c.bit_length() - 1) * c.bit_length() // 2
+    b_ms, b_by = bound(r * c * (8 + 8 + 4) * 2, r * c // 2 * stages)
+    log(f"dist: (a) final-pass rows ({r}, {c}): sort_rows kernel "
+        f"{ms:.4f} ms, torch.sort {lib_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}) = {b_ms / ms:.1%} of bound")
+
+
 def checksum_file(validate, gensort, path: str) -> int:
     """validate.checksum over the whole file, summed chunk by chunk (the
     checksum is a sum of per-record hashes mod 2**64)."""
@@ -1118,6 +1478,10 @@ def main() -> int:
                           ("sort_rows", "sort_rows"),
                           ("histogram", "bucket_histogram")):
             results[key]["launches"] = launches[name]
+
+        # 10. the mesh-scale sort, first on the main phase's file
+        phase_distributed(torch, inp, refsum, sha256(out), MAIN_RECORDS, tmp,
+                          results)
         os.unlink(inp)
 
         # 4. serve the sorted file
@@ -1156,8 +1520,9 @@ def main() -> int:
         phase_ops_fixed(torch, tmp)
     log(f"smoke: every phase ok in {time.perf_counter() - t_start:.1f} s")
 
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("name", "route", "source", "replaces", "launches",
+            "launches_distributed", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
     kernels = [{k: results[n][k] for k in keys}
                for n in ("encode", "rmi_bucket", "sort_rows", "histogram")]
     print(json.dumps({"kernels": kernels}))

@@ -5,7 +5,8 @@
   fields and defaults plus ``device``: ``"cuda"`` by default, so the
   entry points run on the card unless the caller asks for ``"cpu"``.
 * :class:`ExecutorConfig` — the sort-executor seam
-  (``core/executor.make_executor``).
+  (``core/executor.make_executor``), with the mesh executor's ``mesh``
+  and ``axis_names``.
 * :class:`ServeConfig` — the query server (``serve/server.QueryServer``),
   with the reference's fields plus ``device``, where the served
   indexes predict (``"cuda"`` by default).
@@ -107,13 +108,17 @@ class ExecutorConfig:
     per-partition sorts, on which device, and how its super-batches are
     bounded."""
 
-    executor: str = "auto"  # auto | host | batched | per_partition
+    executor: str = "auto"  # auto | host | batched | per_partition | mesh
     device_sort: bool = False
     use_kernels: bool = False
     batch_slots: int = 0  # 0 -> executor default
     batch_bytes: int = 0  # 0 -> executor default
     max_segments: int = 0  # 0 -> executor default
     device: str = "cuda"
+    # the mesh executor's topology: a launch.mesh.DataMesh, or None for
+    # make_data_mesh() on ``device``
+    mesh: "object | None" = None
+    axis_names: tuple = ("data",)
 
     def replace(self, **overrides) -> "ExecutorConfig":
         return dataclasses.replace(self, **overrides)
@@ -172,7 +177,8 @@ def add_sort_cli_args(ap) -> None:
     ap.add_argument("--partitions", type=int, default=d.n_partitions,
                     help="partition count (0: planner auto-tunes)")
     ap.add_argument("--sort-executor", default=d.executor,
-                    choices=("auto", "host", "batched", "per_partition"),
+                    choices=("auto", "host", "batched", "per_partition",
+                             "mesh"),
                     help="sort-executor seam selection")
     ap.add_argument("--partitioner", default=d.partitioner,
                     choices=("auto", "model", "splitter"),

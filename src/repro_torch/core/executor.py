@@ -25,7 +25,10 @@ An executor consumes a stream of ``(tag, RecordBlock)`` items and yields
   batch's staging buffer, so the host never overwrites bytes a copy
   has not yet read.
 
-``MeshBatchedExecutor`` (the multi-GPU sort) is not ported yet.
+* :class:`MeshBatchedExecutor` — the flat segmented sort run on every
+  rank of a data mesh (``launch/mesh.DataMesh``), one collective group
+  dispatch at a time: in one process, the flat sort on its device.
+
 Every executor produces output byte-identical to the host
 path: the stable memcmp order of the full key window, with the
 touch-up beyond byte 8 applied in the executor's epilogue.
@@ -42,7 +45,7 @@ import torch
 from repro_torch.core import encoding, learned_sort, rmi
 from repro_torch.core.encoding import ENCODED_BYTES, SENTINEL
 from repro_torch.core.format import RecordBlock
-from repro_torch.kernels import fused
+from repro_torch.kernels import fused, ops
 
 # Partitions per super-batch: one dispatch covers up to this many segments.
 MAX_SEGMENTS = 32
@@ -57,6 +60,9 @@ class SortExecutor:
     # True when several sorter workers may drive sort_iter concurrently
     # (stateless executors); batching executors need a single caller.
     parallel_safe = True
+    # True when every rank of a mesh counts the same (collective)
+    # dispatches; otherwise each rank counts its own work.
+    collective = False
 
     def __init__(self, model: rmi.RMIParams, clock=None):
         self.model = model
@@ -111,6 +117,54 @@ def _memcmp_touchup(keys: np.ndarray, perm: np.ndarray) -> np.ndarray:
     if (kv[:-1] > kv[1:]).any():
         perm = perm[np.argsort(kv, kind="stable")]
     return perm
+
+
+def _pack_groups(items, small: list, max_segments: int, slots_cap: int,
+                 bytes_cap: int):
+    """The super-batches of an item stream: each closes at
+    ``max_segments`` blocks, ``slots_cap`` records or ``bytes_cap``
+    bytes.  Empty and single-record blocks need no sort; they go to
+    ``small`` instead."""
+    cur: list = []
+    cur_records = 0
+    cur_bytes = 0
+    for tag, block in items:
+        if block.n_records <= 1:
+            small.append((tag, block))
+            continue
+        cur.append((tag, block))
+        cur_records += block.n_records
+        cur_bytes += block.n_bytes
+        if (
+            len(cur) >= max_segments
+            or cur_records >= slots_cap
+            or cur_bytes >= bytes_cap
+        ):
+            yield cur
+            cur, cur_records, cur_bytes = [], 0, 0
+    if cur:
+        yield cur
+
+
+def _split_sorted(entries: list, perm: np.ndarray, what: str):
+    """Each block of a super-batch, sorted by its run of the batch's
+    permutation (indices past the real records are padding and go),
+    then touched up beyond the encoded bytes."""
+    sizes = [b.n_records for _, b in entries]
+    perm = perm[perm < sum(sizes)]
+    bases = np.concatenate([[0], np.cumsum(sizes)])
+    pos = 0
+    for s, (tag, block) in enumerate(entries):
+        m = sizes[s]
+        local = perm[pos : pos + m] - bases[s]
+        pos += m
+        if local.size != m or (local < 0).any() or (local >= m).any():
+            raise RuntimeError(
+                f"{what} mixed segments: segment {s} got indices outside "
+                f"[0, {m}) — executor invariant broken"
+            )
+        local = _memcmp_touchup(block.keys, local)
+        yield tag, block.take(local)
 
 
 def sort_partition(
@@ -317,7 +371,7 @@ class BatchedDeviceExecutor(SortExecutor):
         self._next_slot = (self._next_slot + 1) % self.depth
         sizes = [b.n_records for _, b in entries]
         total = sum(sizes)
-        n_pad = fused.pad_target(total)
+        n_pad = self._pad_width(total)
         s_max = self.max_segments
         # staging layout: keys (n_pad, 8) u8 | seg (n_pad,) i32 |
         # row_base (s_max,) i32 | rows_per_seg (s_max,) i32
@@ -344,12 +398,12 @@ class BatchedDeviceExecutor(SortExecutor):
             if n_pad != total:
                 keys[total:] = 0xFF
                 seg[total:] = k
-            self._count_dispatch(n_pad, total, ("flat", n_pad))
+            self._count_flat(n_pad, total)
             dev = slot.upload(nbytes)
             keys_d = dev[:n_key].view(n_pad, ENCODED_BYTES)
             seg_d = dev[n_key:n_seg].view(torch.int32)
-            slot.fetch(fused.flat_segmented_sort(keys_d, seg_d), None)
-            return entries, sizes, total, n_pad, slot, None
+            slot.fetch(self._flat_sort(keys_d, seg_d), None)
+            return entries, n_pad, slot, None
         pad = n_pad - total
         pad_share = np.zeros(k, dtype=np.int64)
         if pad:
@@ -397,59 +451,148 @@ class BatchedDeviceExecutor(SortExecutor):
             capacity=capacity,
         )
         slot.fetch(perm_d, overflow_d)
-        return entries, sizes, total, n_pad, slot, (seg_d, hi_d, lo_d)
+        return entries, n_pad, slot, (seg_d, hi_d, lo_d)
+
+    def _pad_width(self, total: int) -> int:
+        return fused.pad_target(total)
+
+    def _count_flat(self, n_pad: int, total: int) -> None:
+        self._count_dispatch(n_pad, total, ("flat", n_pad))
+
+    def _flat_sort(self, keys: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
+        return fused.flat_segmented_sort(keys, seg)
 
     def _finish(self, handle: tuple):
         """Fetch one batch's permutation and emit its sorted blocks."""
-        entries, sizes, total, n_pad, slot, words = handle
+        entries, n_pad, slot, words = handle
         perm, overflowed = slot.result(n_pad)  # waits for the device
         if overflowed:
             # the reference's lax.cond fallback: stable (seg, hi, lo)
             self.fallbacks += 1
             perm = fused.stable_segmented_perm(*words).cpu().numpy()
-        perm = perm[perm < total]  # drop the padding records (a copy)
-        bases = np.concatenate([[0], np.cumsum(sizes)])
-        pos = 0
-        for s, (tag, block) in enumerate(entries):
-            m = sizes[s]
-            local = perm[pos : pos + m] - bases[s]
-            pos += m
-            if local.size != m or (local < 0).any() or (local >= m).any():
-                raise RuntimeError(
-                    f"segmented sort mixed segments: segment {s} got "
-                    f"indices outside [0, {m}) — executor invariant broken"
-                )
-            local = _memcmp_touchup(block.keys, local)
-            yield tag, block.take(local)
+        yield from _split_sorted(entries, perm, "segmented sort")
 
     # -- stream protocol ----------------------------------------------
 
     def sort_iter(self, items):
         pending: deque = deque()
-        cur: list = []
-        cur_records = 0
-        cur_bytes = 0
-        for tag, block in items:
-            if block.n_records <= 1:
-                yield tag, block  # empty/single: never dispatched
-                continue
-            cur.append((tag, block))
-            cur_records += block.n_records
-            cur_bytes += block.n_bytes
-            if (
-                len(cur) >= self.max_segments
-                or cur_records >= self._slots_cap
-                or cur_bytes >= self._bytes_cap
-            ):
-                with self._timer():
-                    pending.append(self._dispatch(cur))
-                cur, cur_records, cur_bytes = [], 0, 0
-                while len(pending) >= self.depth:
-                    with self._timer():
-                        yield from self._finish(pending.popleft())
-        if cur:
+        small: list = []
+        for entries in _pack_groups(items, small, self.max_segments,
+                                    self._slots_cap, self._bytes_cap):
+            yield from small  # empty/single: never dispatched
+            small.clear()
             with self._timer():
-                pending.append(self._dispatch(cur))
+                pending.append(self._dispatch(entries))
+            while len(pending) >= self.depth:
+                with self._timer():
+                    yield from self._finish(pending.popleft())
+        yield from small
+        while pending:
+            with self._timer():
+                yield from self._finish(pending.popleft())
+
+
+class MeshBatchedExecutor(BatchedDeviceExecutor):
+    """Mesh executor: the flat super-batch sort run on every rank of a
+    data mesh, one collective group dispatch at a time (DESIGN.md §13).
+
+    The reference packs a group's blocks onto the devices of a jax mesh
+    (least-loaded first, so ``n_dev`` equal key ranges land on their
+    owner devices) and sorts every device's shard in one ``shard_map``
+    launch.  Here each rank packs the blocks it is given — under
+    ``terasort.sort_file_distributed``, the range it owns, which is where
+    the reference's rule puts it — and the ranks dispatch in lockstep:
+    for each group, one all-gather of the ranks' loads fixes the shared
+    padded width ``n_pad = fused.pad_target(max load)``, and every rank
+    sorts its shard, padded to it, through the batched executor's flat
+    dispatch (pinned staging, non-blocking copies, ``depth`` batches in
+    flight) on its own device: the encode kernel, then the stable
+    ``(seg, hi, lo)`` sort (``fused.stable_segmented_perm``, hazard c),
+    then the memcmp touch-up.  No collective runs inside the sort:
+    records already sit on their owner ranks.  A rank with no blocks
+    left joins the rounds with an empty shard until every rank is done,
+    so each rank must drive ``sort_iter`` once per sort.
+
+    Accounting is the reference's: a group dispatch counts once, with
+    ``n_dev * n_pad`` slots and every rank's records, the same on every
+    rank.  A group is bounded as the reference's is, its caps shared by
+    the ranks.  In a process with no process group the mesh has one
+    device and this is the flat segmented sort on it.  ``axis_names``
+    must name the mesh's axis, as in the reference's signature."""
+
+    name = "mesh"
+    collective = True
+
+    def __init__(
+        self,
+        model,
+        *,
+        mesh=None,
+        axis_names=("data",),
+        batch_slots: int = 1 << 20,
+        batch_bytes: int = 256 << 20,
+        max_segments: int = MAX_SEGMENTS,
+        depth: int = PIPELINE_DEPTH,
+        clock=None,
+    ):
+        if mesh is None:
+            from repro_torch.launch.mesh import make_data_mesh
+
+            mesh = make_data_mesh()
+        mesh.check_axes(axis_names)
+        self.mesh = mesh
+        self.n_dev = mesh.world_size
+        super().__init__(
+            model, device=mesh.device, batch_slots=batch_slots // self.n_dev,
+            batch_bytes=batch_bytes // self.n_dev, max_segments=max_segments,
+            depth=depth, flat=True, clock=clock,
+        )
+        # the current round's shared padded width and every rank's records
+        self._round = (0, 0)
+
+    def _pad_width(self, total: int) -> int:
+        return self._round[0]
+
+    def _count_flat(self, n_pad: int, total: int) -> None:
+        self._count_dispatch(self.n_dev * n_pad, self._round[1],
+                             ("mesh", self.n_dev, n_pad))
+
+    def _flat_sort(self, keys: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
+        hi, lo = ops.encode_keys(keys)
+        return fused.stable_segmented_perm(seg, hi, lo)
+
+    def _agree(self, entries: "list | None") -> bool:
+        """One collective round's agreement: every rank's load fixes the
+        shared padded width.  False once no rank has a group left."""
+        load = sum(b.n_records for _, b in entries or ())
+        loads = self.mesh.all_gather_ints([load, entries is not None])
+        if not loads[:, 1].any():
+            return False
+        n_pad = fused.pad_target(max(int(loads[:, 0].max()), 1))
+        self._round = (n_pad, int(loads[:, 0].sum()))
+        return True
+
+    # -- stream protocol ----------------------------------------------
+
+    def sort_iter(self, items):
+        pending: deque = deque()
+        small: list = []
+        groups = _pack_groups(items, small, self.max_segments,
+                              self._slots_cap, self._bytes_cap)
+        while True:
+            entries = next(groups, None)
+            yield from small
+            small.clear()
+            with self._timer():
+                if not self._agree(entries):
+                    break
+                if entries is None:  # an empty shard still counts the round
+                    self._count_flat(self._round[0], 0)
+                else:
+                    pending.append(self._dispatch(entries))
+            while len(pending) >= self.depth:
+                with self._timer():
+                    yield from self._finish(pending.popleft())
         while pending:
             with self._timer():
                 yield from self._finish(pending.popleft())
@@ -479,6 +622,8 @@ def make_executor(
     batch_bytes: int = 0,
     max_segments: int = 0,
     device=None,
+    mesh=None,
+    axis_names=("data",),
     clock=None,
 ) -> SortExecutor:
     """Build the executor for a sort run.
@@ -490,7 +635,10 @@ def make_executor(
     device, the batched executor on the grid graph with the kernels; on
     the CPU, as the reference does on its CPU backend (host unless
     ``device_sort``/``use_kernels``, then batched).  ``"host"``,
-    ``"batched"`` and ``"per_partition"`` force an implementation.
+    ``"batched"`` and ``"per_partition"`` force an implementation;
+    ``"mesh"`` runs the flat sort on every rank of ``mesh`` (a
+    ``launch/mesh.DataMesh``; by default ``make_data_mesh`` on
+    ``device``), whose device it sorts on.
     """
     if config is not None:
         device_sort = device_sort or config.device_sort
@@ -500,6 +648,17 @@ def make_executor(
         batch_bytes = batch_bytes or config.batch_bytes
         max_segments = max_segments or config.max_segments
         device = device if device is not None else config.device
+        mesh = mesh if mesh is not None else config.mesh
+        axis_names = (
+            axis_names if axis_names != ("data",) else config.axis_names
+        )
+    if mesh is not None:  # the mesh's device, which ``device`` may name
+        want = torch.device(device if device is not None else mesh.device)
+        if want.type != mesh.device.type or want.index not in (
+            None, mesh.device.index
+        ):
+            raise ValueError(f"mesh on {mesh.device}, but device={str(device)!r}")
+        device = mesh.device
     dev = resolve_device(device if device is not None else "cuda")
     choice = executor or "auto"
     if choice == "auto":
@@ -507,7 +666,7 @@ def make_executor(
         choice = "batched" if use_device else "host"
     if choice == "host":
         return HostSortExecutor(model, clock=clock)
-    if choice == "batched":
+    if choice in ("batched", "mesh"):
         kw: dict = {"clock": clock}
         if batch_slots:
             kw["batch_slots"] = batch_slots
@@ -515,14 +674,20 @@ def make_executor(
             kw["batch_bytes"] = batch_bytes
         if max_segments:
             kw["max_segments"] = min(max_segments, MAX_SEGMENTS)
+        if choice == "mesh":
+            if mesh is None:
+                from repro_torch.launch.mesh import make_data_mesh
+
+                mesh = make_data_mesh(device=dev)
+            return MeshBatchedExecutor(
+                model, mesh=mesh, axis_names=axis_names, **kw
+            )
         return BatchedDeviceExecutor(
             model, device=dev, use_kernels=use_kernels, **kw
         )
     if choice == "per_partition":
         return PerPartitionDeviceExecutor(model, device=dev, clock=clock)
-    if choice == "mesh":
-        raise NotImplementedError(f"executor {choice!r} is not ported yet")
     raise ValueError(
         f"unknown executor {executor!r} "
-        f"(expected auto|host|batched|per_partition)"
+        f"(expected auto|host|batched|per_partition|mesh)"
     )

@@ -105,6 +105,17 @@ class RecordBlock:
         """Raw bytes of records ``[lo, hi)`` — contiguous by construction."""
         return self.data[self.offsets[lo] : self.offsets[hi]].tobytes()
 
+    def slice_records(self, lo: int, hi: int) -> "RecordBlock":
+        """Records ``[lo, hi)`` as a sub-block.  ``data`` stays a view of
+        this block's buffer (mmap-backed blocks never copy here), offsets
+        are rebased to the sub-block — the chunk iterator of the
+        distributed sorter (``core/terasort.py``)."""
+        off = np.asarray(self.offsets[lo : hi + 1], dtype=np.int64)
+        base = int(off[0])
+        return RecordBlock(
+            self.data[base : int(off[-1])], off - base, self.keys[lo:hi]
+        )
+
     def tobytes(self) -> bytes:
         return self.data[: self.offsets[-1]].tobytes()
 
@@ -117,6 +128,27 @@ class RecordBlock:
         if not d.flags.c_contiguous:
             d = np.ascontiguousarray(d)
         return memoryview(d).cast("B")
+
+    def gather_bytes(self, rows: np.ndarray) -> bytes:
+        """Raw bytes of the records ``rows`` (any subset, in the given
+        order), concatenated — the spill writer of the distributed
+        sorter.  Unlike :meth:`take`, ``rows`` need not be a full
+        permutation."""
+        rows = np.asarray(rows, dtype=np.int64)
+        lengths = np.diff(self.offsets)
+        n = self.n_records
+        if n and (lengths == lengths[0]).all():
+            r = int(lengths[0])
+            return np.ascontiguousarray(
+                self.data[: n * r].reshape(n, r)[rows]
+            ).tobytes()
+        sel = lengths[rows]
+        new_off = np.concatenate(
+            [np.zeros(1, np.int64), np.cumsum(sel, dtype=np.int64)]
+        )
+        shift = self.offsets[:-1][rows] - new_off[:-1]
+        idx = np.repeat(shift, sel) + np.arange(new_off[-1], dtype=np.int64)
+        return np.ascontiguousarray(self.data)[idx].tobytes()
 
     def take(self, perm: np.ndarray) -> "RecordBlock":
         """Records reordered by ``perm`` (output row i = input row perm[i])."""

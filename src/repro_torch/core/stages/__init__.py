@@ -26,13 +26,20 @@ from repro_torch.core.stages.reader import (
     spill_root,
 )
 from repro_torch.core.stages.sorter import sorter_worker
-from repro_torch.core.stages.stats import PhaseClock, SortStats
-from repro_torch.core.stages.writer import WriterPool
+from repro_torch.core.stages.stats import (
+    LatencyReservoir,
+    PhaseClock,
+    ServeStats,
+    SortStats,
+)
+from repro_torch.core.stages.writer import WriterPool, writer_worker
 
 __all__ = [
     "Abort",
+    "LatencyReservoir",
     "PartitionSpill",
     "PhaseClock",
+    "ServeStats",
     "SpillBudget",
     "SortStats",
     "WriterPool",
@@ -42,4 +49,5 @@ __all__ = [
     "reader_worker",
     "sorter_worker",
     "spill_root",
+    "writer_worker",
 ]

@@ -90,6 +90,7 @@ class WriterPool:
         *,
         n_writers: int = 1,
         out_bytes: int = 0,
+        create: bool = True,
     ):
         self.clock = clock
         self.write_q = write_q
@@ -102,12 +103,13 @@ class WriterPool:
         self.writer_bytes = [0] * self.n_writers
         self.writer_stall_seconds = [0.0] * self.n_writers
         # the pool owns creation + preallocation (contiguous extents on
-        # ext4/xfs, and ENOSPC surfaces here instead of mid-sort)
-        self.fd = os.open(
-            output_path, os.O_RDWR | os.O_CREAT | os.O_TRUNC, 0o644
-        )
+        # ext4/xfs, and ENOSPC surfaces here instead of mid-sort);
+        # ``create=False`` opens a file another process created and
+        # preallocated (the distributed sort's ranks other than 0)
+        flags = os.O_RDWR | (os.O_CREAT | os.O_TRUNC if create else 0)
+        self.fd = os.open(output_path, flags, 0o644)
         try:
-            if out_bytes > 0:
+            if create and out_bytes > 0:
                 try:
                     os.posix_fallocate(self.fd, 0, out_bytes)
                 except (OSError, AttributeError):
@@ -195,3 +197,30 @@ class WriterPool:
         except BaseException as e:  # surfaced by the orchestrator after joins
             self.errors.append(e)
             self.abort.set()
+
+
+def writer_worker(
+    clock: PhaseClock,
+    output_path: str,
+    write_q: queue.Queue,
+    n_sorters: int,
+    abort: threading.Event,
+    errors: list,
+) -> None:
+    """Single-writer compatibility entry point: the historical stage
+    function, now a width-1 :class:`WriterPool` run on the calling
+    thread.  Creates the output file if missing (the old ``"r+b"`` open
+    required a pre-created file and broke on fresh paths)."""
+    try:
+        pool = WriterPool(
+            clock, output_path, write_q, n_sorters, abort, errors,
+            n_writers=1,
+        )
+    except BaseException as e:
+        errors.append(e)
+        abort.set()
+        return
+    try:
+        pool._worker(0)
+    finally:
+        pool._close()

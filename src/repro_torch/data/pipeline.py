@@ -1,7 +1,8 @@
 """Stripe-aligned record serving for the external-sort reader pool.
 
 Copy of the stripe half of ``src/repro/data/pipeline.py`` (``Stripe``,
-``record_stripes``, ``byte_stripes``) for the PyTorch port: the input
+``record_stripes``, ``byte_stripes``, ``stripe_batches``) for the
+PyTorch port: the input
 file is split into contiguous *stripes* (paper §3.2 — each of the r
 reader threads owns a contiguous region of the input).  Stripe
 boundaries are pure functions of (n_records, n_stripes), so any reader
@@ -11,6 +12,7 @@ count re-derives the same global record order.
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator
 
 import numpy as np
 
@@ -60,3 +62,21 @@ def byte_stripes(n_bytes: int, n_stripes: int) -> list[Stripe]:
     *start* inside it; see DESIGN.md §8).
     """
     return record_stripes(n_bytes, n_stripes)
+
+
+def stripe_batches(
+    path: str, stripe: Stripe, batch_records: int
+) -> Iterator[tuple[int, np.ndarray]]:
+    """Yield ``(record_offset, batch)`` covering ``stripe`` in input order.
+
+    Batches are owned copies (not memmap views), safe to hand to another
+    thread or mutate.  The memmap is opened once per stripe, and reads are
+    sequential within the stripe — the mostly-sequential I/O pattern the
+    paper's reader threads rely on (§3.2).
+    """
+    from repro_torch.data import gensort
+
+    recs = gensort.read_records(path)
+    for off in range(stripe.start, stripe.stop, batch_records):
+        hi = min(off + batch_records, stripe.stop)
+        yield off, np.array(recs[off:hi])

@@ -2,8 +2,10 @@
 its plain PyTorch version, bit for bit, the batched and per-partition
 executors and ``sort_file`` on the card against the host executor's
 bytes, the per-partition chain and the dual-input RMI call against
-their plain versions, a cached model reused on the card, and a CUDA
-``SortedFileIndex`` against a CPU one.
+their plain versions, a cached model reused on the card, a CUDA
+``SortedFileIndex`` against a CPU one, and the mesh-scale sort (router,
+``make_sort_fn``, ``sort_file_distributed``) at world size 1 on NCCL
+and on gloo.
 
 Every test needs a CUDA device (a CUDA kernel has no CPU mode) and skips
 without one; the check happens when the test runs.  This file imports
@@ -557,3 +559,99 @@ def test_verify_co_partitioning_on_card(cuda, tmp_path):
     n = operators.verify_co_partitioning(left, right, use_kernels=True)
     assert ops.rmi_bucket.launches == 1
     assert n == operators.verify_co_partitioning(left, right) > 0
+
+
+# ---------------------------------------------------------------------------
+# The mesh-scale sort on the card, in this process at world size 1
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(params=["nccl", "gloo"])
+def card_mesh(cuda, tmp_path, request):
+    """A 1-rank process group on the card, NCCL or gloo, torn down
+    after the test."""
+    from repro_torch.launch import mesh as tmesh
+
+    tmesh.initialize_multiprocess(
+        f"file://{tmp_path / 'store'}", 1, 0, backend=request.param,
+        device="cuda", timeout_s=60,
+    )
+    try:
+        mesh = tmesh.make_data_mesh()
+        assert mesh.backend == request.param and mesh.device.type == "cuda"
+        yield mesh
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def test_router_on_card(card_mesh):
+    """The route function buckets with the RMI kernel, keeps the words
+    on the card, and delivers every real row of a padded chunk."""
+    from repro_torch.core import terasort
+
+    n = 5000
+    keys = gensort.uniform_keys(n, seed=2)
+    model = trmi.fit(keys, n_leaf=256)
+    words = np.full((2, 5120), SENTINEL, dtype=np.int64)
+    words[0, :n], words[1, :n] = encoding.encode_np(keys)
+    hi, lo = torch.from_numpy(words).to(card_mesh.device)
+    val = torch.arange(5120, dtype=torch.int32, device=card_mesh.device)
+    val[n:] = -1  # padding rows, as _stripe marks them
+    ops.reset_launches()
+    route = terasort._make_route_fn(card_mesh, model, 5120, 1.6)
+    out, n_valid, lost = route(hi, lo, val)
+    assert ops.rmi_bucket.launches == 1
+    assert out.is_cuda and n_valid.is_cuda and lost.is_cuda
+    assert int(lost[0]) == 0 and int(n_valid[0]) == n
+    assert sorted(out[:n].tolist()) == list(range(n))
+
+
+def test_make_sort_fn_on_card(card_mesh):
+    """``make_sort_fn`` at world size 1 on the card equals the CPU run
+    (no process group) word for word, and sorts every key."""
+    from repro_torch.core import distributed
+    from repro_torch.launch import mesh as tmesh
+
+    n = 1 << 16
+    keys = gensort.skewed_keys(n, seed=4)
+    model = trmi.fit(keys[::16], n_leaf=512)
+    hi, lo = (torch.from_numpy(w.astype(np.int64)) for w in encoding.encode_np(keys))
+    val = torch.arange(n, dtype=torch.int32)
+    ops.reset_launches()
+    fn = distributed.make_sort_fn(card_mesh, ("data",), model, n)
+    got = fn(hi.to(card_mesh.device), lo.to(card_mesh.device),
+             val.to(card_mesh.device))
+    assert ops.rmi_bucket.launches >= 2  # the router and sort_device
+    assert all(t.is_cuda for t in got)
+    cpu = tmesh.DataMesh(None, 0, 1, torch.device("cpu"))  # no group
+    want = distributed.make_sort_fn(cpu, ("data",), model, n)(hi, lo, val)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    gh, gl, gv = distributed.global_sorted_from_shards(*got[:4], 1)
+    o = np.lexsort((lo.numpy(), hi.numpy()))
+    assert (gh == hi.numpy()[o]).all() and (gl == lo.numpy()[o]).all()
+    assert int(got[4][0]) == 0 and len(np.unique(gv)) == n
+
+
+@pytest.mark.parametrize("executor", ["batched", "mesh"])
+def test_sort_file_distributed_on_card(card_mesh, tmp_path, executor):
+    """``sort_file_distributed`` on the card writes the host executor's
+    bytes, through the RMI kernel (the router) and the encode kernel
+    (the final pass)."""
+    from repro_torch.core import terasort
+
+    n = 40_000
+    inp = str(tmp_path / "in.bin")
+    gensort.write_file(inp, n, skewed=True, seed=13)
+    host = str(tmp_path / "host.bin")
+    external.sort_file(inp, host, config=SortConfig(device="cpu", executor="host"))
+    out = str(tmp_path / "out.bin")
+    ops.reset_launches()
+    stats = terasort.sort_file_distributed(
+        inp, out, card_mesh, chunk_records=8192, executor=executor,
+        workdir=str(tmp_path),
+    )
+    with open(out, "rb") as a, open(host, "rb") as b:
+        assert a.read() == b.read()
+    assert stats.executor == executor and stats.device_dispatches >= 1
+    assert ops.rmi_bucket.launches >= 5 and ops.encode_keys.launches >= 1

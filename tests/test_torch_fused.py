@@ -205,8 +205,8 @@ def test_make_executor_resolves_like_jax_on_cpu():
         tex.make_executor(model, device="cpu", executor="warp_drive")
     ex = tex.make_executor(model, device="cpu", executor="per_partition")
     assert isinstance(ex, tex.PerPartitionDeviceExecutor)
-    with pytest.raises(NotImplementedError):
-        tex.make_executor(model, device="cpu", executor="mesh")
+    ex = tex.make_executor(model, device="cpu", executor="mesh")
+    assert isinstance(ex, tex.MeshBatchedExecutor)
 
 
 def test_make_executor_cuda_needs_a_card():

@@ -108,14 +108,21 @@ def test_cuda_requested_without_a_card_raises(tmp_path_factory, tmp_path):
 
 
 def test_unported_features_raise(tmp_path_factory, tmp_path):
-    """The multi-GPU executor is not ported yet (the model cache is: see
-    tests/test_torch_model_cache.py)."""
-    inp, _, _ = _reference(tmp_path_factory, "uniform", "coalesced")
-    cfg = SortConfig(device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        text.sort_file(
-            inp, str(tmp_path / "o.bin"), config=cfg, executor="mesh"
-        )
+    """Meshes of more than one axis (the LM substrate's) are not ported
+    yet.  The mesh executor is (see tests/test_torch_mesh_executor.py):
+    ``sort_file`` under it writes the reference's bytes."""
+    from repro_torch.launch.mesh import make_mesh
+
+    with pytest.raises(NotImplementedError, match="1-D"):
+        make_mesh((16, 16), ("data", "model"), device="cpu")
+    inp, _, jsha = _reference(tmp_path_factory, "uniform", "coalesced")
+    out = str(tmp_path / "o.bin")
+    stats = text.sort_file(
+        inp, out, config=SortConfig(memory_budget_bytes=BUDGET, device="cpu"),
+        executor="mesh", **SPILLS["coalesced"],
+    )
+    assert stats.executor == "mesh"
+    assert _sha(out) == jsha
 
 
 def test_port_imports_without_jax_or_repro():
@@ -132,7 +139,8 @@ def test_port_imports_without_jax_or_repro():
         for name in names:
             importlib.import_module(name)
         for name in ("repro_torch.serve.server", "repro_torch.core.operators",
-                     "repro_torch.launch.ops"):
+                     "repro_torch.launch.ops", "repro_torch.core.terasort",
+                     "repro_torch.core.distributed", "repro_torch.launch.mesh"):
             assert name in names, names
         bad = [m for m in sys.modules
                if (m == "jax" or m.startswith(("jax.", "jaxlib", "repro.")))
