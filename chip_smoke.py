@@ -73,9 +73,31 @@ Phases, one line each (any failure exits non-zero):
    plain version on those inputs, and (a)'s final-pass rows are timed.
    Each ``make_sort_fn`` run holds the global order to ``np.lexsort``,
    loses nothing, and holds the RMI kernel to its plain version on the
-   words each rank received.
+   words each rank received;
+11. lm (run last) — the LM serving path, ``repro_torch.serve.engine
+   .ServeEngine`` on the card: (a) qwen3-4b at full width and depth
+   (36 layers, d 2560, 32 heads / 8 kv, vocab 151,936; 4,411,424,256
+   seeded f32 parameters) serves 4 ``SyntheticLM`` prompts of 512
+   tokens for 32 new; (b) mixtral-8x7b at full width, 2 of its 32
+   layers (3,164,688,384 parameters), serves one prompt of 4,608 tokens
+   (the chunked attention; not a multiple of the 4,096 window, so the
+   ring is rotated) for 512 new, past the window, with capacity factor
+   n_experts / top_k so that no MoE token is dropped (the default 1.25's
+   drop fraction on the prompt is logged).  Each is held against the
+   port's ``forward`` over prompt + generated tokens: finite logits,
+   served logits within 0.3 (36 layers) / 0.1 (2 layers) of forward's at
+   every position whose decode routes agree with forward's (a position
+   routed differently must sit at a router near-tie), and each generated
+   token equal to forward's argmax wherever its top-2 gap exceeds twice
+   that; prefill and decode times, tokens/s, peak memory and the device
+   trace are logged.  (c) The seven ported archs at smoke size on the
+   card against the host with the same parameters: forward and prefill
+   logits within 5e-2 (the CPU tests' tolerance), served tokens under
+   the token rule, ``bucket_matrix`` on the MoE archs' expert ids bit
+   for bit.  The four sorter kernels launch 0 times while serving.
 
-It then prints one JSON line describing each kernel (times from CUDA
+It then prints one JSON line describing each kernel (the LM phase's
+launches under ``launches_lm``) (times from CUDA
 events, bounds from the bytes each call must move at 3.35 TB/s or its
 operations at 67 TFLOP/s), the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -128,6 +150,25 @@ BITONIC_SWEEP = ((16384, 512), (8192, 1024), (4096, 2048), (2048, 4096),
 # keys a rank that make_sort_fn sorts
 DIST_RANKS, DIST_RECORDS, SORT_FN_KEYS = 4, 1_000_000, 1 << 20
 DIST_TIMEOUT_S = 300
+# the LM phase: (a) qwen3-4b at full size serves 4 prompts of 512 tokens
+# for 32 new; (b) mixtral-8x7b at full width, 2 of its 32 layers, serves
+# one prompt of 4,608 tokens (above the chunked-attention threshold, not a
+# multiple of the 4,096 window) for 512 new; (c) the ported archs at smoke
+# size, card against host.  Float tolerance and token margin are the CPU
+# tests' (tests/test_torch_lm_serve.py).
+LM_PROMPTS, LM_PROMPT_LEN, LM_NEW = 4, 512, 32
+LM_LONG_PROMPT, LM_LONG_NEW, LM_MIXTRAL_LAYERS = 4608, 512, 2
+LM_TOL = 5e-2
+LM_TOKEN_MARGIN = 2 * LM_TOL
+# served logits (single-token products) against forward's (batched ones)
+# differ by bf16 rounding that grows with depth: measured 0.2354 at 36
+# layers and 0.0823 at 2 layers of width 4096 (an H100), bounded here by
+# 0.3 and 0.1.  A decode step whose router lands within LM_ROUTE_MARGIN of
+# a tie may pick other experts than forward did (measured gaps 3e-4 to
+# 4e-3 on mixtral's 511 steps)
+LM_TOL_DEEP, LM_TOL_SHALLOW, LM_ROUTE_MARGIN = 0.3, 0.1, 0.01
+LM_ARCHS = ("qwen3-4b", "qwen3-8b", "yi-9b", "qwen2-72b", "mixtral-8x7b",
+            "moonshot-v1-16b-a3b", "internvl2-26b")
 
 
 def log(msg: str) -> None:
@@ -1336,6 +1377,287 @@ def time_final_rows(torch, kept: list) -> None:
         f"bound {b_ms:.4f} ms ({b_by}) = {b_ms / ms:.1%} of bound")
 
 
+@contextlib.contextmanager
+def recording_routes():
+    """Keep the expert ids and router probabilities of every MoE routing
+    call, in call order (wraps ``repro_torch.models.moe.route``)."""
+    from repro_torch.models import moe
+
+    calls, route = [], moe.route
+
+    def recorded(p, cfg, xn):
+        out = route(p, cfg, xn)
+        calls.append((out[3], out[1]))
+        return out
+
+    moe.route = recorded
+    try:
+        yield calls
+    finally:
+        moe.route = route
+
+
+def lm_check(torch, np, cfg, params, prompts, gen, tol: float, what: str) -> None:
+    """The port's ``forward`` over prompt + generated tokens against the
+    served logits (prefill's last, then ``decode_logits`` fed the
+    generated tokens, the engine's own steps): finite; within ``tol`` at
+    every position whose MoE routes agree; and the generated token equal
+    to forward's argmax wherever forward's f32 top-2 gap exceeds the
+    token margin ``2 * tol``.  A position whose decode picked other
+    experts than forward must sit at a router near-tie (the k-th and
+    (k+1)-th probabilities of its first differing layer within
+    ``LM_ROUTE_MARGIN``); it is left out of both checks and counted."""
+    from repro_torch.models import transformer
+
+    dev = params.device
+    b, p = prompts.shape
+    n = gen.shape[1]
+    n_moe = sum(k == "moe" for period in params.periods for k in period)
+    pt = torch.as_tensor(prompts, device=dev)
+    gt = torch.as_tensor(gen, device=dev)
+    t0 = time.perf_counter()
+    with recording_routes() as fwd_routes:
+        logits, _ = transformer.forward(cfg, params, torch.cat([pt, gt], 1))
+    fwd = logits[:, p - 1 : p - 1 + n]
+    del logits
+    with recording_routes() as dec_routes:
+        last, cache = transformer.prefill(cfg, params, pt, max_seq=p + n)
+        served = [last[:, None]]
+        for j in range(n - 1):
+            served.append(transformer.decode_logits(cfg, params, cache, gt[:, j : j + 1]))
+    served = torch.cat(served, 1)
+    require(bool(torch.isfinite(fwd).all() and torch.isfinite(served).all()),
+            f"{what}: logits are not finite")
+    # positions whose decode routing differs from forward's
+    flipped = torch.zeros((b, n), dtype=torch.bool, device=dev)
+    near_ties = []
+    for j in range(n - 1):
+        for layer in range(n_moe):
+            ids = dec_routes[n_moe + j * n_moe + layer][0].reshape(b, -1)
+            f_ids, f_probs = fwd_routes[layer]
+            for row in range(b):
+                t = row * (p + n) + p + j
+                if flipped[row, j + 1] or set(ids[row].tolist()) == set(f_ids[t].tolist()):
+                    continue
+                srt = f_probs[t].sort(descending=True).values
+                k = ids.shape[1]
+                gap = float(srt[k - 1] - srt[k])
+                require(gap < LM_ROUTE_MARGIN,
+                        f"{what}: decode step {j} layer {layer} routed to "
+                        f"other experts at a router gap of {gap}")
+                near_ties.append(round(gap, 5))
+                flipped[row, j + 1] = True
+    keep = ~flipped
+    d = (served - fwd).abs().amax(-1)
+    worst = float(d[keep].max())
+    require(worst <= tol, f"{what}: served logits differ from forward's by "
+            f"{worst} > {tol} (per position: {d.tolist()})")
+    top2 = fwd.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1] > 2 * tol) & keep
+    bad = (fwd.argmax(-1) != gt) & clear
+    require(not bool(bad.any()), f"{what}: {int(bad.sum())} generated tokens "
+            f"differ from forward's argmax at a clear (gap > {2 * tol}) position")
+    log(f"lm: {what} check ({time.perf_counter() - t0:.2f} s): served vs forward "
+        f"logits max |diff| {worst:.4f} <= {tol} over {int(keep.sum())} of "
+        f"{keep.numel()} positions; {int(clear.sum())} generated tokens = "
+        f"forward's argmax at gap > {2 * tol}, {int((~clear & keep).sum())} "
+        f"excluded by the gap, {int(flipped.sum())} by a decode route flip "
+        f"at a router near-tie (gaps {near_ties}); served vs forward there "
+        f"max |diff| {float(d[flipped].max()) if flipped.any() else 0.0:.4f}")
+
+
+def lm_serve(torch, np, cfg, params, prompts, new: int, what: str) -> dict:
+    """``ServeEngine.generate`` on the card under a device trace; logs
+    prefill and decode times, tokens/s and peak memory."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+    from repro_torch.serve.engine import ServeEngine
+
+    engine = ServeEngine(build_model(cfg), params=params)
+    ops.reset_launches()
+    prof = start_device_trace(torch)
+    t0 = time.perf_counter()
+    gen = engine.generate(prompts, new)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    log_device_time(prof, f"lm: {what}", wall)
+    st = engine.stats
+    b = prompts.shape[0]
+    require(st.logits_finite, f"{what}: served logits are not finite")
+    require(gen.shape == (b, new), f"{what}: generated {gen.shape}")
+    require(not any(launches.values()),
+            f"{what}: a sorter kernel launched while serving {launches}")
+    res = dict(
+        prefill_ms=st.prefill_seconds * 1e3,
+        decode_ms_per_step=st.decode_seconds * 1e3 / max(st.decode_steps, 1),
+        decode_tokens_per_s=b * st.decode_steps / max(st.decode_seconds, 1e-9),
+        tokens_per_s=b * new / wall,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+    )
+    log(f"lm: {what} served {b} x {prompts.shape[1]} prompt tokens + {new} new "
+        f"in {wall:.2f} s: prefill {res['prefill_ms']:.1f} ms, decode "
+        f"{res['decode_ms_per_step']:.2f} ms a step ({st.decode_steps} steps, "
+        f"{res['decode_tokens_per_s']:.1f} tokens/s), {res['tokens_per_s']:.1f} "
+        f"new tokens/s end to end, peak memory {res['peak_gb']:.2f} GB; "
+        f"sorter kernel launches {launches}")
+    return {"gen": gen, **res}
+
+
+def lm_cuda_vs_cpu(torch, np, arch: str) -> None:
+    """(c) One smoke arch on the card and on the host with the same
+    parameters: forward and prefill logits within ``LM_TOL``, served
+    tokens under the token rule, ``bucket_matrix`` on the MoE archs'
+    expert ids bit-equal."""
+    import copy
+
+    from repro_torch.configs import registry
+    from repro_torch.core import partition
+    from repro_torch.data.pipeline import PipelineConfig, SyntheticLM
+    from repro_torch.models import layers, moe, transformer
+    from repro_torch.models.api import build_model
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = registry.get_config(arch, smoke=True)
+    cpu = transformer.init_params(cfg, seed=0, device="cpu")
+    gpu = copy.deepcopy(cpu).to("cuda")
+    toks = SyntheticLM(PipelineConfig(cfg.vocab_raw, 16, 2)).batch_at(0)["tokens"]
+    extras = {}
+    if cfg.frontend == "vit":
+        extras["frontend_embeds"] = np.random.default_rng(0).standard_normal(
+            (2, cfg.n_frontend_tokens, cfg.d_frontend)).astype(np.float32)
+    worst = 0.0
+    for fn in (transformer.forward, transformer.prefill):
+        out = []
+        for params, dev in ((cpu, "cpu"), (gpu, "cuda")):
+            fe = extras.get("frontend_embeds")
+            args = (torch.as_tensor(toks, device=dev),
+                    None if fe is None else torch.as_tensor(fe, device=dev))
+            out.append(fn(cfg, params, *args)[0].cpu())
+        require(torch.allclose(out[1], out[0], atol=LM_TOL, rtol=LM_TOL),
+                f"{arch}: {fn.__name__} logits on the card differ from the "
+                f"host's by {float((out[1] - out[0]).abs().max())}")
+        worst = max(worst, float((out[1] - out[0]).abs().max()))
+        if fn is transformer.forward:
+            host_logits = out[0]
+    gens = [ServeEngine(build_model(cfg), params=p, device=d).generate(
+        toks[:, :8], 8, **extras) for p, d in ((cpu, "cpu"), (gpu, "cuda"))]
+    n_front = cfg.n_frontend_tokens if cfg.frontend == "vit" else 0
+    ref = transformer.forward(
+        cfg, cpu, torch.as_tensor(np.concatenate([toks[:, :8], gens[0]], 1)),
+        None if not extras else torch.as_tensor(extras["frontend_embeds"]),
+    )[0][:, n_front + 7 : n_front + 15]
+    top2 = ref.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1] > LM_TOKEN_MARGIN).numpy()
+    for g, w, c in zip(gens[1], gens[0], clear):
+        # equal up to the first differing token, which must not be clear
+        diff = np.nonzero(g != w)[0]
+        require(not len(diff) or not c[diff[0]],
+                f"{arch}: served tokens on the card differ from the host's at "
+                f"a clear position")
+    msg = f"lm: (c) {arch}: card vs host logits max |diff| {worst:.4f}"
+    if cfg.moe:
+        p = next(layer[slot] for layer in cpu.layers for slot in layer
+                 if slot.endswith("moe"))
+        x = transformer.embed_inputs(cfg, cpu, torch.as_tensor(toks))
+        xn = layers.rms_norm(x, p.norm, cfg.norm_eps).reshape(-1, cfg.d_model)
+        ids = moe.route(p, cfg, xn)[3].reshape(-1).to(torch.int32)
+        capacity = moe._round_up(max(int(
+            ids.numel() / cfg.moe.n_experts * cfg.moe.capacity_factor), 8), 8)
+        host = partition.bucket_matrix(ids, cfg.moe.n_experts, capacity)
+        card = partition.bucket_matrix(ids.cuda(), cfg.moe.n_experts, capacity)
+        require(all(torch.equal(h, c.cpu()) for h, c in zip(host, card)),
+                f"{arch}: bucket_matrix on the card differs from the host's")
+        msg += (f"; bucket_matrix bit-equal on {ids.numel()} expert ids "
+                f"(capacity {capacity}, counts {host[2].tolist()})")
+    log(msg)
+
+
+def phase_lm(torch, results: dict) -> None:
+    """11. The LM serving path (see the module docstring)."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import PipelineConfig, SyntheticLM
+    from repro_torch.models import transformer
+
+    t0 = time.perf_counter()
+    # the reference's products accumulate in f32: no TF32, no bf16 split-K
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    lm_launches = {}
+
+    # (a) qwen3-4b, full width and depth
+    cfg = registry.get_config("qwen3-4b")
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    params = transformer.init_params(cfg, seed=0)
+    n_params = sum(p.numel() for p in params.parameters())
+    torch.cuda.synchronize()
+    log(f"lm: (a) {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{n_params} parameters ({n_params * 4 / 1e9:.1f} GB f32) initialised "
+        f"on the card in {time.perf_counter() - t1:.1f} s")
+    prompts = SyntheticLM(PipelineConfig(
+        cfg.vocab_raw, LM_PROMPT_LEN, LM_PROMPTS)).batch_at(0)["tokens"]
+    a = lm_serve(torch, np, cfg, params, prompts, LM_NEW, "(a) qwen3-4b")
+    lm_launches["a"] = launch_counts()
+    lm_check(torch, np, cfg, params, prompts, a["gen"], LM_TOL_DEEP,
+             "(a) qwen3-4b")
+    log(f"lm: (a) peak memory with the check "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; (a) "
+        f"{time.perf_counter() - t1:.1f} s")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) mixtral-8x7b, full width, depth cut
+    full = registry.get_config("mixtral-8x7b")
+    cfg = dataclasses.replace(full, n_layers=LM_MIXTRAL_LAYERS)
+    m = cfg.moe
+    wide = dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.n_experts / m.top_k))
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    params = transformer.init_params(cfg, seed=0)
+    n_params = sum(p.numel() for p in params.parameters())
+    prompt = SyntheticLM(PipelineConfig(
+        cfg.vocab_raw, LM_LONG_PROMPT, 1)).batch_at(0)["tokens"]
+    log(f"lm: (b) {cfg.name}: {cfg.n_layers} of {full.n_layers} layers, "
+        f"{n_params} parameters ({n_params * 4 / 1e9:.1f} GB f32), window "
+        f"{cfg.window}, capacity factor {wide.moe.capacity_factor} served")
+    _, aux = transformer.forward(cfg, params, torch.as_tensor(prompt, device="cuda"))
+    log(f"lm: (b) prefill of {LM_LONG_PROMPT} tokens at the default capacity "
+        f"factor {m.capacity_factor}: moe_dropped_frac "
+        f"{float(aux['moe_dropped_frac']) / cfg.n_layers:.4f} a layer "
+        f"(summed over layers {float(aux['moe_dropped_frac']):.4f})")
+    b = lm_serve(torch, np, wide, params, prompt, LM_LONG_NEW, "(b) mixtral")
+    lm_launches["b"] = launch_counts()
+    lm_check(torch, np, wide, params, prompt, b["gen"], LM_TOL_SHALLOW,
+             "(b) mixtral")
+    log(f"lm: (b) peak memory with the check "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; (b) "
+        f"{time.perf_counter() - t1:.1f} s")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) every ported arch at smoke size, card against host
+    t1 = time.perf_counter()
+    for arch in LM_ARCHS:
+        lm_cuda_vs_cpu(torch, np, arch)
+    log(f"lm: (c) {time.perf_counter() - t1:.1f} s")
+    for key, name in (("encode", "encode_keys"), ("rmi_bucket", "rmi_bucket"),
+                      ("sort_rows", "sort_rows"),
+                      ("histogram", "bucket_histogram")):
+        results[key]["launches_lm"] = {
+            run: by_name[name] for run, by_name in lm_launches.items()
+        }
+    log(f"lm: launches of the four sorter kernels while serving {lm_launches}")
+    log(f"lm: phase {time.perf_counter() - t0:.1f} s")
+
+
 def checksum_file(validate, gensort, path: str) -> int:
     """validate.checksum over the whole file, summed chunk by chunk (the
     checksum is a sum of per-record hashes mod 2**64)."""
@@ -1518,11 +1840,14 @@ def main() -> int:
         # 8.-9. the merge-free operators
         phase_ops_lines(torch, tmp)
         phase_ops_fixed(torch, tmp)
+
+    # 11. the LM serving path
+    phase_lm(torch, results)
     log(f"smoke: every phase ok in {time.perf_counter() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches",
-            "launches_distributed", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")
+            "launches_distributed", "launches_lm", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: results[n][k] for k in keys}
                for n in ("encode", "rmi_bucket", "sort_rows", "histogram")]
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,35 @@
+"""qwen3-8b [dense] — 36L d4096 32H (GQA kv=8) d_ff 12288 vocab 151936,
+qk_norm [hf:Qwen/Qwen3-8B].
+
+Copy of ``src/repro/configs/qwen3_8b.py`` for the PyTorch port.
+"""
+
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-8b",
+    family="dense",
+    n_layers=36,
+    d_model=4096,
+    n_heads=32,
+    n_kv=8,
+    d_head=128,
+    d_ff=12288,
+    vocab_raw=151936,
+    qk_norm=True,
+    rope_theta=1_000_000.0,
+)
+
+SMOKE_CONFIG = ModelConfig(
+    name="qwen3-8b-smoke",
+    family="dense",
+    n_layers=2,
+    d_model=64,
+    n_heads=4,
+    n_kv=2,
+    d_head=16,
+    d_ff=128,
+    vocab_raw=97,
+    qk_norm=True,
+    rope_theta=10_000.0,
+)

@@ -1,0 +1,263 @@
+"""GQA attention: qk-norm (qwen3), QKV bias (qwen2), sliding window
+(mixtral), and KV-cache decode (port of ``src/repro/models/attention.py``).
+
+The train/prefill path computes scores with ``torch`` matmuls: dense up to
+``CHUNK_THRESHOLD`` tokens, blockwise with an online softmax beyond (the
+reference's ``lax.scan`` becomes a Python loop over blocks).  Decode writes
+one token's K/V into a preallocated ``(B, S_max, K, hd)`` bf16 cache in
+place and attends over the whole cache under a mask.  A sliding-window
+layer keeps a ring of ``min(max_seq, window)`` slots; token ``t`` lives
+in slot ``t % ring``, from prefill on.
+
+Not ported here: the ``REPRO_OPT_SHARDING`` branches, the ``shard_map``
+cache write and ``rules.constrain`` (ROADMAP Queue 1 item 4e), and the
+cross-attention functions (item 4c, with whisper).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.models import layers
+
+NEG_INF = -1e9
+
+# memory threshold: use the chunked online-softmax path beyond this length
+CHUNK_THRESHOLD = 2048
+Q_BLOCK = 512
+KV_BLOCK = 1024
+
+
+class Attention(nn.Module):
+    """One self-attention sublayer's weights (``init_attn``)."""
+
+    def __init__(self, cfg, generator: torch.Generator | None = None, device=None):
+        super().__init__()
+        d, hd = cfg.d_model, cfg.d_head
+        h, k = cfg.n_heads, cfg.n_kv
+        P = layers.param
+        self.norm = P((d,), None, device, fill=1.0)
+        self.wq = P((d, h * hd), generator, device)
+        self.wk = P((d, k * hd), generator, device)
+        self.wv = P((d, k * hd), generator, device)
+        self.wo = P(
+            (h * hd, d), generator, device,
+            scale=1.0 / max(1, cfg.n_layers) ** 0.5,
+        )
+        self.qkv_bias = cfg.qkv_bias
+        if cfg.qkv_bias:
+            self.bq = P((h * hd,), None, device, fill=0.0)
+            self.bk = P((k * hd,), None, device, fill=0.0)
+            self.bv = P((k * hd,), None, device, fill=0.0)
+        self.qk_norm = cfg.qk_norm
+        if cfg.qk_norm:
+            self.q_norm = P((hd,), None, device, fill=1.0)
+            self.k_norm = P((hd,), None, device, fill=1.0)
+
+
+def _project_qkv(p: Attention, cfg, xq: torch.Tensor, xkv: torch.Tensor):
+    h, k, hd = cfg.n_heads, cfg.n_kv, cfg.d_head
+    dt = xq.dtype
+    q = xq @ p.wq.to(dt)
+    kk = xkv @ p.wk.to(dt)
+    v = xkv @ p.wv.to(dt)
+    if p.qkv_bias:
+        q = q + p.bq.to(dt)
+        kk = kk + p.bk.to(dt)
+        v = v + p.bv.to(dt)
+    q = q.reshape(*q.shape[:2], h, hd)
+    kk = kk.reshape(*kk.shape[:2], k, hd)
+    v = v.reshape(*v.shape[:2], k, hd)
+    if p.qk_norm:
+        q = layers.rms_norm(q, p.q_norm, cfg.norm_eps)
+        kk = layers.rms_norm(kk, p.k_norm, cfg.norm_eps)
+    return q, kk, v
+
+
+def _sdpa(q, k, v, mask, n_rep: int):
+    """q (B,Sq,H,hd), k/v (B,Sk,K,hd), mask (B|1,Sq,Sk) bool (True=keep).
+    Scores and softmax in f32; the weights are cast to q's dtype."""
+    b, sq, h, hd = q.shape
+    kv = k.shape[2]
+    qg = q.reshape(b, sq, kv, n_rep, hd)
+    scores = torch.einsum("bqkrh,bskh->bkrqs", qg.float(), k.float()) / (hd**0.5)
+    scores = torch.where(mask[:, None, None, :, :], scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkrqs,bskh->bqkrh", w, v)
+    return out.reshape(b, sq, h, hd)
+
+
+def _sdpa_chunked(q, k, v, n_rep: int, *, window: int = 0):
+    """Flash-style causal blockwise attention: O(S·block) memory instead
+    of O(S²).
+
+    A loop over query blocks, and inside it over kv blocks with an online
+    (m, l, acc) softmax; causal/window masks are applied per block pair
+    from absolute positions.  Block sizes are the reference's: halved
+    until they divide the length.  A kv block that every query of the
+    block masks is skipped: in the reference it contributes exactly
+    nothing (a later block's ``corr = exp(-1e9 - m) = 0`` erases one that
+    comes first, ``p = exp(-1e9 - m) = 0`` one that comes after).
+    """
+    b, sq, h, hd = q.shape
+    sk = k.shape[1]
+    qb = min(Q_BLOCK, sq)
+    kb = min(KV_BLOCK, sk)
+    while sq % qb:
+        qb //= 2
+    while sk % kb:
+        kb //= 2
+    scale = 1.0 / (hd**0.5)
+    out = torch.empty_like(q)
+    dev = q.device
+    for q0 in range(0, sq, qb):
+        qblk = q[:, q0 : q0 + qb].float()
+        q_pos = torch.arange(q0, q0 + qb, device=dev)
+        m_run = torch.full((b, h, qb), -torch.inf, device=dev)
+        l_run = torch.zeros((b, h, qb), device=dev)
+        acc = torch.zeros((b, h, qb, hd), device=dev)
+        for k0 in range(0, sk, kb):
+            if k0 > q0 + qb - 1:
+                break
+            if window > 0 and k0 + kb - 1 <= q0 - window:
+                continue
+            # GQA: expand kv heads to H at block granularity (kb x H x hd)
+            kr = k[:, k0 : k0 + kb].repeat_interleave(n_rep, dim=2)
+            vr = v[:, k0 : k0 + kb].repeat_interleave(n_rep, dim=2)
+            k_pos = torch.arange(k0, k0 + kb, device=dev)
+            s = torch.einsum("bqhd,bkhd->bhqk", qblk, kr.float()) * scale
+            mask = k_pos[None, :] <= q_pos[:, None]
+            if window > 0:
+                mask &= k_pos[None, :] > q_pos[:, None] - window
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m_run, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m_run - m_new)
+            l_run = l_run * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p.to(vr.dtype).float(), vr.float()
+            )
+            m_run = m_new
+        blk = acc / torch.clamp_min(l_run, 1e-30)[..., None]
+        out[:, q0 : q0 + qb] = blk.transpose(1, 2).to(q.dtype)
+    return out
+
+
+def _attend_out(p: Attention, x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    flat = out.reshape(*out.shape[:2], -1)
+    return x + flat @ p.wo.to(x.dtype)
+
+
+def _rope(cfg, q, k, positions):
+    if cfg.rope_theta > 0:
+        cos, sin = layers.rope_cos_sin(positions, cfg.d_head, cfg.rope_theta)
+        q = layers.apply_rope(q, cos, sin)
+        k = layers.apply_rope(k, cos, sin)
+    return q, k
+
+
+def attend_full(
+    p: Attention,
+    cfg,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    window: int = 0,
+    return_kv: bool = False,
+):
+    """Train / prefill causal self-attention over the whole sequence (the
+    reference's ``causal=False``, for whisper's encoder, is item 4c)."""
+    xn = layers.rms_norm(x, p.norm, cfg.norm_eps)
+    q, k, v = _project_qkv(p, cfg, xn, xn)
+    q, k = _rope(cfg, q, k, positions)
+    s = x.shape[1]
+    n_rep = cfg.n_heads // cfg.n_kv
+    if s > CHUNK_THRESHOLD:
+        out = _sdpa_chunked(q, k, v, n_rep, window=window)
+    else:
+        i = torch.arange(s, device=x.device)[:, None]
+        j = torch.arange(s, device=x.device)[None, :]
+        mask = j <= i
+        if window > 0:
+            mask = mask & (j > i - window)
+        out = _sdpa(q, k, v, mask[None], n_rep)
+    y = _attend_out(p, x, out)
+    if return_kv:
+        return y, (k, v)
+    return y
+
+
+def init_cache(cfg, batch: int, max_seq: int, dtype=layers.COMPUTE_DTYPE, device=None):
+    kv, hd = cfg.n_kv, cfg.d_head
+    return {
+        "k": torch.zeros((batch, max_seq, kv, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, max_seq, kv, hd), dtype=dtype, device=device),
+    }
+
+
+def _decode_qkv(p: Attention, cfg, x: torch.Tensor, pos: int):
+    xn = layers.rms_norm(x, p.norm, cfg.norm_eps)
+    q, k_new, v_new = _project_qkv(p, cfg, xn, xn)
+    posv = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
+    return (*_rope(cfg, q, k_new, posv), v_new)
+
+
+def attend_decode(p: Attention, cfg, x, cache: dict, pos: int):
+    """One-token decode: write the cache at ``pos`` in place, attend over
+    the prefix.  x (B,1,D); pos — current write index (same for the batch).
+    (The reference's ``window=`` is not ported: a sliding-window layer
+    decodes through ``attend_rolling``.)"""
+    s_max = cache["k"].shape[1]
+    if pos >= s_max:
+        raise ValueError(f"decode position {pos} is past the cache's {s_max} slots")
+    q, k_new, v_new = _decode_qkv(p, cfg, x, pos)
+    cache["k"][:, pos] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][:, pos] = v_new[:, 0].to(cache["v"].dtype)
+    mask = torch.arange(s_max, device=x.device)[None, :] <= pos
+    out = _sdpa(
+        q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), mask[:, None, :],
+        cfg.n_heads // cfg.n_kv,
+    )
+    return _attend_out(p, x, out)
+
+
+def attend_rolling(p: Attention, cfg, x, cache: dict, pos: int):
+    """Sliding-window decode over a ring of ``min(max_seq, window)`` slots:
+    token ``pos`` is written at slot ``pos % ring`` in place.
+
+    RoPE is applied at write time with absolute positions, so attention
+    over the (order-rotated) ring is position-correct.  Slots
+    ``0..min(pos, ring-1)`` hold tokens; once ``pos >= ring`` the ring
+    holds exactly the last ``window`` tokens.  A ring shorter than the
+    window (``max_seq < window``) has no slot to evict into and raises."""
+    ring = cache["k"].shape[1]
+    if ring < cfg.window and pos >= ring:
+        raise ValueError(f"decode position {pos} is past the cache's {ring} slots")
+    q, k_new, v_new = _decode_qkv(p, cfg, x, pos)
+    slot = pos % ring
+    cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
+    written = torch.arange(ring, device=x.device)[None, :] <= min(pos, ring - 1)
+    mask = written | (pos >= ring)
+    out = _sdpa(
+        q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), mask[:, None, :],
+        cfg.n_heads // cfg.n_kv,
+    )
+    return _attend_out(p, x, out)
+
+
+def fill_cache(cache: dict, k: torch.Tensor, v: torch.Tensor, *, ring: bool) -> None:
+    """Write a prompt's K/V (B, S, K, hd) into a cache in place: at slots
+    ``0..S-1``, or, for a ring, the last ``ring`` tokens at ``t % ring``."""
+    s, n = k.shape[1], cache["k"].shape[1]
+    if not ring:
+        if s > n:
+            raise ValueError(f"a prompt of {s} tokens does not fit {n} cache slots")
+        cache["k"][:, :s] = k.to(cache["k"].dtype)
+        cache["v"][:, :s] = v.to(cache["v"].dtype)
+        return
+    first = max(0, s - n)
+    slots = torch.arange(first, s, device=k.device) % n
+    cache["k"][:, slots] = k[:, first:].to(cache["k"].dtype)
+    cache["v"][:, slots] = v[:, first:].to(cache["v"].dtype)

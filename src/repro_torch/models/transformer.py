@@ -1,0 +1,291 @@
+"""Decoder-LM assembly: layers, train / prefill / decode paths, embeddings
+and the LM head (port of ``src/repro/models/transformer.py``).
+
+Layer plan (configs/base.py ``layer_plan``): a list of groups, each a
+*period* of sublayers repeated ``n_repeat`` times.  The reference stacks a
+group's parameters on a leading axis and ``lax.scan``s over it; the port
+keeps one module per layer (``Transformer.layers[i]``, a ``ModuleDict``
+of the period's sublayers under the reference's slot names) and loops.
+
+Sublayer kinds ported: ``attn``, ``attn_swa``, ``mlp``, ``moe``; the
+``vit`` frontend stub.  ``mamba``, ``mlstm``, ``slstm``, ``cross``,
+``attn_bidir`` and encoder-decoder models raise ``NotImplementedError``
+(ROADMAP Queue 1 item 4c).
+
+The sliding-window cache differs from the reference's on purpose: the
+reference's prefill keeps ``k[:, -window:]`` (the prompt token ``t`` at
+slot ``t - (P - window)``, and a ring only ``P`` long when ``P < window``)
+while its decode writes at ``pos % window``, so its decode attends to the
+wrong tokens unless the prompt length is a multiple of the window
+(ROADMAP Queue 3).  Here the ring has ``min(max_seq, window)`` slots and
+token ``t`` lives at ``t % ring`` from prefill on.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+import torch.nn.functional as F
+
+from repro_torch.core.executor import resolve_device
+from repro_torch.models import attention, layers, moe
+
+UNPORTED_KINDS = ("mamba", "mlstm", "slstm", "cross", "attn_bidir")
+
+
+def _slot(i: int, kind: str) -> str:
+    return f"{i:02d}_{kind}"
+
+
+def check_supported(cfg) -> None:
+    """Raise ``NotImplementedError`` for what this port does not run yet."""
+    if cfg.enc_dec:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder models are not ported yet "
+            "(ROADMAP Queue 1 item 4c)"
+        )
+    for _, period in cfg.layer_plan():
+        for kind in period:
+            if kind in UNPORTED_KINDS:
+                raise NotImplementedError(
+                    f"{cfg.name}: sublayer kind {kind!r} is not ported yet "
+                    "(ROADMAP Queue 1 item 4c)"
+                )
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+
+def init_sublayer(kind: str, cfg, generator=None, device=None) -> nn.Module:
+    if kind in ("attn", "attn_swa"):
+        return attention.Attention(cfg, generator, device)
+    if kind == "mlp":
+        return layers.MLP(cfg.d_model, cfg.d_ff, generator, device, norm=True)
+    if kind == "moe":
+        return moe.MoE(cfg, generator, device)
+    raise NotImplementedError(f"sublayer kind {kind!r} (ROADMAP Queue 1 item 4c)")
+
+
+class Frontend(nn.Module):
+    """The ``vit`` stub's projector: precomputed patch embeddings →
+    ``d_model``."""
+
+    def __init__(self, cfg, generator=None, device=None):
+        super().__init__()
+        self.proj1 = layers.param((cfg.d_frontend, cfg.d_model), generator, device)
+        self.proj2 = layers.param((cfg.d_model, cfg.d_model), generator, device)
+
+
+class Transformer(nn.Module):
+    """The port's parameters: f32, frozen, one module per layer.
+
+    With ``generator=None`` the weights are left empty, to be filled by
+    ``load_state_dict`` (e.g. from ``convert.from_jax_params``)."""
+
+    def __init__(self, cfg, generator: torch.Generator | None = None, device=None):
+        super().__init__()
+        check_supported(cfg)
+        d, v = cfg.d_model, cfg.vocab
+        self.embed = layers.param((v, d), generator, device)
+        self.final_norm = layers.param((d,), None, device, fill=1.0)
+        if not cfg.tie_embeddings:
+            self.lm_head = layers.param((d, v), generator, device)
+        if cfg.frontend == "vit":
+            self.frontend = Frontend(cfg, generator, device)
+        self.layers = nn.ModuleList()
+        self.periods: list[tuple[str, ...]] = []
+        for n_repeat, period in cfg.layer_plan():
+            for _ in range(n_repeat):
+                self.layers.append(nn.ModuleDict({
+                    _slot(i, kind): init_sublayer(kind, cfg, generator, device)
+                    for i, kind in enumerate(period)
+                }))
+                self.periods.append(period)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+
+def init_params(cfg, seed: int = 0, device="cuda") -> Transformer:
+    """Seeded random parameters on ``device`` (a ``torch.Generator`` there;
+    the numbers differ from the reference's ``jax.random`` ones)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return Transformer(cfg, gen, dev)
+
+
+@dataclasses.dataclass
+class Cache:
+    """Decode state: per layer, per attention slot, ``{"k", "v"}`` bf16
+    tensors ``(B, S_max | ring, K, hd)`` written in place; ``pos`` is the
+    next write position."""
+
+    layers: list[dict[str, dict[str, torch.Tensor]]]
+    pos: int = 0
+
+
+def init_sublayer_cache(kind: str, cfg, batch: int, max_seq: int, device=None):
+    if kind in ("attn", "attn_swa"):
+        cap = min(max_seq, cfg.window) if kind == "attn_swa" and cfg.window else max_seq
+        return attention.init_cache(cfg, batch, cap, device=device)
+    return None  # mlp / moe are stateless
+
+
+def init_cache(cfg, batch: int, max_seq: int, device=None) -> Cache:
+    out = []
+    for n_repeat, period in cfg.layer_plan():
+        for _ in range(n_repeat):
+            ch = {}
+            for i, kind in enumerate(period):
+                c = init_sublayer_cache(kind, cfg, batch, max_seq, device)
+                if c is not None:
+                    ch[_slot(i, kind)] = c
+            out.append(ch)
+    return Cache(out)
+
+
+# ---------------------------------------------------------------------------
+# sublayer dispatch
+# ---------------------------------------------------------------------------
+
+
+def apply_sublayer_seq(kind: str, p, cfg, x, positions, *, want_kv: bool = False):
+    """Full-sequence path (train / prefill). Returns (x, (k, v)|None, aux)."""
+    aux, kv = {}, None
+    if kind in ("attn", "attn_swa"):
+        window = cfg.window if kind == "attn_swa" else 0
+        if want_kv:
+            x, kv = attention.attend_full(
+                p, cfg, x, positions, window=window, return_kv=True
+            )
+        else:
+            x = attention.attend_full(p, cfg, x, positions, window=window)
+    elif kind == "mlp":
+        xn = layers.rms_norm(x, p.norm, cfg.norm_eps)
+        x = x + layers.apply_mlp(p, xn)
+    elif kind == "moe":
+        x, aux = moe.apply_moe(p, cfg, x)
+    else:
+        raise NotImplementedError(f"sublayer kind {kind!r} (ROADMAP Queue 1 item 4c)")
+    return x, kv, aux
+
+
+def apply_sublayer_step(kind: str, p, cfg, x, cache, pos: int):
+    """Single-token decode path; attention caches are updated in place."""
+    if kind == "attn":
+        return attention.attend_decode(p, cfg, x, cache, pos)
+    if kind == "attn_swa":  # layer_plan gives it only where window > 0
+        return attention.attend_rolling(p, cfg, x, cache, pos)
+    if kind == "mlp":
+        xn = layers.rms_norm(x, p.norm, cfg.norm_eps)
+        return x + layers.apply_mlp(p, xn)
+    if kind == "moe":
+        x, _ = moe.apply_moe(p, cfg, x, capacity_factor=4.0)
+        return x
+    raise NotImplementedError(f"sublayer kind {kind!r} (ROADMAP Queue 1 item 4c)")
+
+
+# ---------------------------------------------------------------------------
+# forward paths
+# ---------------------------------------------------------------------------
+
+
+def embed_inputs(cfg, params: Transformer, tokens, frontend_embeds=None):
+    # gather, then cast: the reference's cast-then-gather, without casting
+    # the whole table
+    x = params.embed[tokens.to(torch.int64)].to(layers.COMPUTE_DTYPE)
+    if cfg.frontend == "vit" and frontend_embeds is not None:
+        fr = params.frontend
+        f = frontend_embeds.to(layers.COMPUTE_DTYPE)
+        f = layers.gelu(f @ fr.proj1.to(f.dtype))
+        f = f @ fr.proj2.to(f.dtype)
+        x = torch.cat([f, x], dim=1)
+    return x
+
+
+def lm_logits(cfg, params: Transformer, x: torch.Tensor) -> torch.Tensor:
+    """Final norm, then the head in f32 on bf16-rounded operands."""
+    x = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
+    head = params.embed.T if cfg.tie_embeddings else params.lm_head
+    return x.float() @ head.to(x.dtype).float()
+
+
+def _positions(s: int, device) -> torch.Tensor:
+    return torch.arange(s, dtype=torch.int32, device=device)[None, :]
+
+
+def forward(cfg, params: Transformer, tokens, frontend_embeds=None):
+    """Full-sequence logits (f32) and the MoE aux metrics summed over
+    layers."""
+    x = embed_inputs(cfg, params, tokens, frontend_embeds)
+    positions = _positions(x.shape[1], x.device)
+    aux_total = {"moe_lb_loss": 0.0, "moe_z_loss": 0.0, "moe_dropped_frac": 0.0}
+    for layer, period in zip(params.layers, params.periods):
+        for i, kind in enumerate(period):
+            x, _, aux = apply_sublayer_seq(kind, layer[_slot(i, kind)], cfg, x, positions)
+            for k, val in aux.items():
+                aux_total[k] = aux_total[k] + val
+    return lm_logits(cfg, params, x), aux_total
+
+
+def loss_fn(cfg, params: Transformer, batch: dict):
+    """Next-token cross-entropy (+ MoE aux), value only.  batch: tokens
+    (B, S) [+ frontend_embeds]; frontend positions are excluded."""
+    tokens = batch["tokens"]
+    logits, aux = forward(cfg, params, tokens, batch.get("frontend_embeds"))
+    n_front = logits.shape[1] - tokens.shape[1]
+    logits_text = logits[:, n_front:, :]
+    tgt = tokens[:, 1:].to(torch.int64)
+    lp = F.log_softmax(logits_text[:, :-1].float(), dim=-1)
+    loss = -torch.gather(lp, -1, tgt[..., None])[..., 0].mean()
+    total = loss + 0.01 * aux["moe_lb_loss"] + 0.001 * aux["moe_z_loss"]
+    return total, {"loss": loss, **aux}
+
+
+def prefill(cfg, params: Transformer, tokens, frontend_embeds=None,
+            max_seq: int | None = None):
+    """Run the full prompt, return (last_logits f32 (B, V), cache ready for
+    decode at ``pos = S``).  The cache holds ``max_seq`` slots (the prompt's
+    length if None); a sliding-window layer's ring holds
+    ``min(max_seq, window)``, token ``t`` at slot ``t % ring``."""
+    x = embed_inputs(cfg, params, tokens, frontend_embeds)
+    s = x.shape[1]
+    max_seq = s if max_seq is None else max_seq
+    if max_seq < s:
+        raise ValueError(f"max_seq {max_seq} is shorter than the prompt ({s})")
+    positions = _positions(s, x.device)
+    cache = init_cache(cfg, x.shape[0], max_seq, x.device)
+    for layer, period, lcache in zip(params.layers, params.periods, cache.layers):
+        for i, kind in enumerate(period):
+            slot = _slot(i, kind)
+            x, kv, _ = apply_sublayer_seq(
+                kind, layer[slot], cfg, x, positions, want_kv=slot in lcache
+            )
+            if kv is not None:
+                ring = kind == "attn_swa" and cfg.window > 0
+                attention.fill_cache(lcache[slot], *kv, ring=ring)
+    cache.pos = s
+    return lm_logits(cfg, params, x[:, -1]), cache
+
+
+def decode_logits(cfg, params: Transformer, cache: Cache, tokens) -> torch.Tensor:
+    """One decode step's f32 logits (B, 1, V); advances ``cache``."""
+    x = embed_inputs(cfg, params, tokens)
+    for layer, period, lcache in zip(params.layers, params.periods, cache.layers):
+        for i, kind in enumerate(period):
+            slot = _slot(i, kind)
+            x = apply_sublayer_step(kind, layer[slot], cfg, x, lcache.get(slot), cache.pos)
+    cache.pos += 1
+    return lm_logits(cfg, params, x)
+
+
+def decode_step(cfg, params: Transformer, cache: Cache, tokens):
+    """One greedy decode step. tokens (B, 1) -> (next (B, 1) int32, cache)."""
+    logits = decode_logits(cfg, params, cache, tokens)
+    return torch.argmax(logits, dim=-1).to(torch.int32), cache

@@ -5,7 +5,10 @@ bytes, the per-partition chain and the dual-input RMI call against
 their plain versions, a cached model reused on the card, a CUDA
 ``SortedFileIndex`` against a CPU one, and the mesh-scale sort (router,
 ``make_sort_fn``, ``sort_file_distributed``) at world size 1 on NCCL
-and on gloo.
+and on gloo; and the LM serving path at smoke size (the seven ported
+archs' forward, prefill and decode on the card against the host,
+``bucket_matrix`` on their expert ids, ``ServeEngine``'s default device,
+the blockwise attention).
 
 Every test needs a CUDA device (a CUDA kernel has no CPU mode) and skips
 without one; the check happens when the test runs.  This file imports
@@ -655,3 +658,107 @@ def test_sort_file_distributed_on_card(card_mesh, tmp_path, executor):
         assert a.read() == b.read()
     assert stats.executor == executor and stats.device_dispatches >= 1
     assert ops.rmi_bucket.launches >= 5 and ops.encode_keys.launches >= 1
+
+
+# ---------------------------------------------------------------------------
+# The LM serving path on the card (chip_smoke.py phase 11 (c), smoke size)
+# ---------------------------------------------------------------------------
+
+LM_ARCHS = ("qwen3-4b", "qwen3-8b", "yi-9b", "qwen2-72b", "mixtral-8x7b",
+            "moonshot-v1-16b-a3b", "internvl2-26b")
+LM_TOL = 5e-2  # tests/test_torch_lm_serve.py's float tolerance
+
+
+@pytest.fixture
+def lm_card(cuda):
+    """The card with f32 accumulation in bf16 products, as the reference
+    accumulates; restored after the test."""
+    old = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield cuda
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = old
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_on_card_matches_host(lm_card, arch):
+    """Forward and prefill logits on the card within ``LM_TOL`` of the
+    host's with the same parameters; the MoE metrics equal; decode steps
+    advance the card's cache; ``bucket_matrix`` on the expert ids
+    bit-equal."""
+    import copy
+
+    from repro_torch.configs import registry
+    from repro_torch.core import partition
+    from repro_torch.models import layers, moe, transformer
+
+    cfg = registry.get_config(arch, smoke=True)
+    cpu = transformer.init_params(cfg, seed=0, device="cpu")
+    gpu = copy.deepcopy(cpu).to(lm_card)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_raw, (2, 16)).astype(np.int32))
+    fe = None
+    if cfg.frontend == "vit":
+        fe = torch.from_numpy(rng.standard_normal(
+            (2, cfg.n_frontend_tokens, cfg.d_frontend)).astype(np.float32))
+    on_card = (toks.to(lm_card), None if fe is None else fe.to(lm_card))
+    (lc, ac), (lg, ag) = (transformer.forward(cfg, cpu, toks, fe),
+                          transformer.forward(cfg, gpu, *on_card))
+    assert lg.is_cuda and lg.dtype == torch.float32
+    torch.testing.assert_close(lg.cpu(), lc, atol=LM_TOL, rtol=LM_TOL)
+    assert float(ag["moe_dropped_frac"]) == float(ac["moe_dropped_frac"])
+    max_seq = 24 + (cfg.n_frontend_tokens if fe is not None else 0)
+    (pc, cc), (pg, cg) = (transformer.prefill(cfg, cpu, toks, fe, max_seq=max_seq),
+                          transformer.prefill(cfg, gpu, *on_card, max_seq=max_seq))
+    torch.testing.assert_close(pg.cpu(), pc, atol=LM_TOL, rtol=LM_TOL)
+    nxt = pc.argmax(-1).to(torch.int32)[:, None]
+    for _ in range(3):
+        lc1 = transformer.decode_logits(cfg, cpu, cc, nxt)
+        lg1 = transformer.decode_logits(cfg, gpu, cg, nxt.to(lm_card))
+        torch.testing.assert_close(lg1.cpu(), lc1, atol=LM_TOL, rtol=LM_TOL)
+        nxt = lc1.argmax(-1).to(torch.int32)
+    assert cg.pos == cc.pos and all(
+        c["k"].is_cuda for layer in cg.layers for c in layer.values())
+    if cfg.moe:
+        p = next(layer[s] for layer in cpu.layers for s in layer if s.endswith("moe"))
+        x = transformer.embed_inputs(cfg, cpu, toks)
+        xn = layers.rms_norm(x, p.norm, cfg.norm_eps).reshape(-1, cfg.d_model)
+        ids = moe.route(p, cfg, xn)[3].reshape(-1).to(torch.int32)
+        for capacity in (8, 24, 64):
+            host = partition.bucket_matrix(ids, cfg.moe.n_experts, capacity)
+            card = partition.bucket_matrix(ids.to(lm_card), cfg.moe.n_experts, capacity)
+            for h, c in zip(host, card):
+                assert torch.equal(c.cpu(), h)
+
+
+def test_serve_engine_defaults_to_card(lm_card):
+    from repro_torch.configs import registry
+    from repro_torch.models.api import build_model
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = registry.get_config("mixtral-8x7b", smoke=True)
+    engine = ServeEngine(build_model(cfg), seed=0)
+    assert engine.params.embed.is_cuda
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_raw, (3, 20)).astype(np.int32)
+    out = engine.generate(prompts, 24)  # past the window of 16
+    assert out.shape == (3, 24) and out.dtype == np.int32
+    assert engine.stats.logits_finite and engine.stats.decode_steps == 23
+
+
+@pytest.mark.parametrize("window", [0, 100, 4096])
+def test_sdpa_chunked_on_card(lm_card, window):
+    """The blockwise attention on the card against the dense one at the
+    shapes of ``tests/test_attention.py`` (f32)."""
+    from repro_torch.models import attention
+
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32) * sc).to(lm_card)
+               for s, sc in (((2, 4096, 4, 16), 0.3), ((2, 4096, 2, 16), 0.3),
+                             ((2, 4096, 2, 16), 1.0)))
+    i = torch.arange(4096, device=lm_card)[:, None]
+    j = torch.arange(4096, device=lm_card)[None, :]
+    mask = (j <= i) & ((j > i - window) if window else True)
+    dense = attention._sdpa(q, k, v, mask[None], 2)
+    out = attention._sdpa_chunked(q, k, v, 2, window=window)
+    torch.testing.assert_close(out, dense, atol=3e-5, rtol=0)

@@ -1,0 +1,325 @@
+"""Port parity of the LM serving path for the seven ported archs at smoke
+size: ``forward`` logits and MoE metrics, ``prefill``'s last logits and
+cache, teacher-forced ``decode_step`` tokens and ``ServeEngine.generate``
+(``device="cpu"``) against ``repro.models`` / ``repro.serve.engine`` with
+the same parameters (``convert.from_jax_params`` of the reference's
+``jax.random`` init); the converter's round trip; the three archs not
+ported yet raising ``NotImplementedError``; and the sliding-window ring,
+which the port fixes and the reference gets wrong (ROADMAP Queue 3).
+
+The reference runs op by op (``jax.disable_jit()``): every op rounded to
+the dtype its source names, as the port rounds.  Compiled, XLA:CPU keeps
+some bf16 intermediates of a fused scan body in f32, so the compiled
+reference differs from its own op-by-op evaluation by a few hundredths
+in the smoke archs' logits, and on moonshot's smoke config it routes a
+token whose router sits near a tie to another expert, which moves that
+token's logits by more than 1.
+
+Tolerances: float results ``TOL`` (atol = rtol = 5e-2, the reference's
+prefill-against-forward tolerance, ``tests/test_recurrent_parity.py``);
+tokens equal wherever the reference's f32 top-2 logit gap exceeds
+``TOKEN_MARGIN`` = twice that; integers bit-equal.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import registry as jreg  # noqa: E402
+from repro.models import transformer as jtr  # noqa: E402
+from repro.models.api import build_model as jbuild  # noqa: E402
+from repro.serve.engine import ServeEngine as JServeEngine  # noqa: E402
+from repro_torch.configs import registry as treg  # noqa: E402
+from repro_torch.models import convert, transformer as ttr  # noqa: E402
+from repro_torch.models.api import build_model  # noqa: E402
+from repro_torch.serve.engine import ServeEngine  # noqa: E402
+
+ARCHS = ["qwen3-4b", "qwen3-8b", "yi-9b", "qwen2-72b", "mixtral-8x7b",
+         "moonshot-v1-16b-a3b", "internvl2-26b"]
+UNPORTED = ["jamba-v0.1-52b", "xlstm-350m", "whisper-medium"]
+TOL = dict(atol=5e-2, rtol=5e-2)
+TOKEN_MARGIN = 2 * TOL["atol"]
+B, P, T = 2, 16, 6  # batch, prompt, new tokens (P = mixtral's smoke window)
+
+
+def _gap(logits: np.ndarray) -> np.ndarray:
+    top2 = np.sort(logits, axis=-1)[..., -2:]
+    return top2[..., 1] - top2[..., 0]
+
+
+def _tokens_agree(got, want, ref_logits) -> None:
+    """Teacher-forced tokens: equal wherever the reference's gap is clear."""
+    clear = _gap(ref_logits) > TOKEN_MARGIN
+    assert clear.mean() > 0.5, "too few clear positions to compare"
+    np.testing.assert_array_equal(np.asarray(got)[clear], np.asarray(want)[clear])
+
+
+def _greedy_agree(got, want, ref_logits) -> None:
+    """Generated rows: equal at every clear position up to the first
+    token that differs, which must sit at a position that is not clear
+    (past it the two rows continue from other contexts)."""
+    clear = _gap(ref_logits) > TOKEN_MARGIN
+    compared = 0
+    for g, w, c in zip(np.asarray(got), np.asarray(want), clear):
+        for j in range(len(g)):
+            if g[j] != w[j]:
+                assert not c[j], f"token {j}: port {g[j]}, reference {w[j]}"
+                break
+            compared += int(c[j])
+    assert compared >= len(clear), "too few clear positions to compare"
+
+
+def _ref_forward(jcfg, params, tokens, fe=None):
+    with jax.disable_jit():
+        logits, aux = jtr.forward(jcfg, params, jnp.asarray(tokens), fe, remat=False)
+    return np.asarray(logits), {k: float(v) for k, v in aux.items()}
+
+
+@dataclasses.dataclass
+class Case:
+    jcfg: object
+    tcfg: object
+    jparams: dict
+    tparams: ttr.Transformer
+    tokens: np.ndarray  # (B, P + T): the prompt and the teacher tokens
+    extras: dict  # frontend_embeds (numpy) for the vit stub
+    n_front: int
+
+
+def _case(arch: str, cfg_fn=lambda c: c) -> Case:
+    jcfg = cfg_fn(jreg.get_config(arch, smoke=True))
+    tcfg = cfg_fn(treg.get_config(arch, smoke=True))
+    jparams = jbuild(jcfg).init_params(jax.random.key(0))
+    tparams = build_model(tcfg).load_params(
+        convert.from_jax_params(jax.device_get(jparams)), device="cpu"
+    )
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, jcfg.vocab_raw, (B, P + T)).astype(np.int32)
+    extras, n_front = {}, 0
+    if jcfg.frontend == "vit":
+        n_front = jcfg.n_frontend_tokens
+        extras["frontend_embeds"] = rng.standard_normal(
+            (B, n_front, jcfg.d_frontend)
+        ).astype(np.float32)
+    return Case(jcfg, tcfg, jparams, tparams, tokens, extras, n_front)
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def case(request) -> Case:
+    return _case(request.param)
+
+
+def _fe(case: Case, lib: str):
+    fe = case.extras.get("frontend_embeds")
+    if fe is None:
+        return None
+    return torch.from_numpy(fe) if lib == "torch" else jnp.asarray(fe)
+
+
+def test_forward_matches_reference(case):
+    want, aux_j = _ref_forward(case.jcfg, case.jparams, case.tokens, _fe(case, "jax"))
+    got, aux_t = ttr.forward(case.tcfg, case.tparams, torch.from_numpy(case.tokens),
+                             _fe(case, "torch"))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    for k in ("moe_lb_loss", "moe_z_loss"):
+        np.testing.assert_allclose(float(aux_t[k]), aux_j[k], **TOL)
+    assert float(aux_t["moe_dropped_frac"]) == aux_j["moe_dropped_frac"]
+    loss_t, _ = ttr.loss_fn(case.tcfg, case.tparams, {
+        "tokens": torch.from_numpy(case.tokens),
+        **{k: torch.from_numpy(v) for k, v in case.extras.items()},
+    })
+    with jax.disable_jit():
+        loss_j, _ = jtr.loss_fn(case.jcfg, case.jparams, {
+            "tokens": jnp.asarray(case.tokens), **case.extras,
+        }, remat=False)
+    np.testing.assert_allclose(float(loss_t), float(loss_j), **TOL)
+
+
+def _cache_leaf(jcache, L_group, r, slot, name):
+    return np.asarray(jcache["groups"][L_group][slot][name][r].astype(jnp.float32))
+
+
+def test_prefill_and_decode_match_reference(case):
+    """Prefill's last logits and cache, then ``T`` teacher-forced decode
+    steps: tokens against the reference's decode under the token rule."""
+    jm, tm = jbuild(case.jcfg), build_model(case.tcfg)
+    max_seq = case.n_front + P + T
+    prompt = case.tokens[:, :P]
+    with jax.disable_jit():
+        last_j, cache_j = jm.prefill(case.jparams, {"tokens": prompt, **case.extras},
+                                     max_seq=max_seq)
+    last_t, cache_t = tm.prefill(case.tparams, {
+        "tokens": torch.from_numpy(prompt),
+        **{k: torch.from_numpy(v) for k, v in case.extras.items()},
+    }, max_seq=max_seq)
+    np.testing.assert_allclose(last_t.numpy(), np.asarray(last_j), **TOL)
+    assert cache_t.pos == int(cache_j["pos"]) == case.n_front + P
+    layer = 0
+    for g, (n_repeat, period) in enumerate(case.jcfg.layer_plan()):
+        for r in range(n_repeat):
+            for slot, c in cache_t.layers[layer].items():
+                for name in ("k", "v"):
+                    want = _cache_leaf(cache_j, g, r, slot, name)
+                    assert c[name].dtype == torch.bfloat16
+                    assert c[name].shape == want.shape
+                    np.testing.assert_allclose(c[name].float().numpy(), want, **TOL)
+            layer += 1
+
+    ref_logits, _ = _ref_forward(case.jcfg, case.jparams, case.tokens, _fe(case, "jax"))
+    got, want = [], []
+    for j in range(T):
+        tok = case.tokens[:, P + j : P + j + 1]
+        with jax.disable_jit():
+            nj, cache_j = jm.decode_step(case.jparams, cache_j, jnp.asarray(tok))
+        nt, cache_t = tm.decode_step(case.tparams, cache_t, torch.from_numpy(tok))
+        assert nt.dtype == torch.int32
+        got.append(nt.numpy()[:, 0])
+        want.append(np.asarray(nj)[:, 0])
+    _tokens_agree(np.stack(got, 1), np.stack(want, 1),
+                  ref_logits[:, case.n_front + P : case.n_front + P + T])
+
+
+def test_serve_engine_matches_reference(case):
+    prompt = case.tokens[:, :P]
+    with jax.disable_jit():
+        want = JServeEngine(jbuild(case.jcfg), params=case.jparams).generate(
+            prompt, T, **case.extras
+        )
+    engine = ServeEngine(build_model(case.tcfg), params=case.tparams, device="cpu")
+    got = engine.generate(prompt, T, **case.extras)
+    assert got.shape == want.shape == (B, T) and got.dtype == np.int32
+    assert engine.stats.logits_finite and engine.stats.decode_steps == T - 1
+    ref_logits, _ = _ref_forward(
+        case.jcfg, case.jparams, np.concatenate([prompt, want], axis=1), _fe(case, "jax")
+    )
+    lo = case.n_front + P - 1
+    _greedy_agree(got, want, ref_logits[:, lo : lo + T])
+
+
+def test_from_jax_params_round_trip(case):
+    """Every leaf of the reference's tree lands in the port's parameters
+    with its shape and bytes, and the port has no other parameter."""
+    tree = jax.device_get(case.jparams)
+    state = case.tparams.state_dict()
+    seen = 0
+
+    def check(leaf, name):
+        nonlocal seen
+        got = state[name].numpy()
+        assert got.shape == leaf.shape and got.dtype == leaf.dtype == np.float32
+        assert got.tobytes() == np.ascontiguousarray(leaf).tobytes(), name
+        seen += 1
+
+    def walk(t, prefix, index=None):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}.", index)
+            else:
+                check(np.asarray(v) if index is None else np.asarray(v)[index], prefix + k)
+
+    walk({k: v for k, v in tree.items() if k != "groups"}, "")
+    layer = 0
+    for group, (n_repeat, _) in zip(tree["groups"], case.jcfg.layer_plan()):
+        for r in range(n_repeat):
+            walk(group, f"layers.{layer}.", r)
+            layer += 1
+    assert seen == len(state)
+    names = set(state)
+    cfg = case.jcfg
+    assert any(n.endswith(".bq") for n in names) == cfg.qkv_bias
+    assert any(n.endswith(".q_norm") for n in names) == cfg.qk_norm
+    assert any(".shared." in n for n in names) == bool(cfg.moe and cfg.moe.n_shared)
+    assert ("frontend.proj1" in names) == (cfg.frontend == "vit")
+
+
+def test_serve_engine_needs_a_card_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device resolves")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(build_model(treg.get_config("qwen3-4b", smoke=True)))
+
+
+@pytest.mark.parametrize("arch", UNPORTED)
+def test_unported_archs_raise(arch):
+    cfg = treg.get_config(arch, smoke=True)
+    with pytest.raises(NotImplementedError, match="item 4c"):
+        build_model(cfg)
+    with pytest.raises(NotImplementedError, match="item 4c"):
+        ttr.init_params(cfg, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the sliding-window ring (mixtral smoke: window 16)
+# ---------------------------------------------------------------------------
+
+
+def _no_drop(cfg):
+    """Capacity n_experts / top_k: forward drops no MoE token (decode's 4.0
+    drops none at this batch), so only the cache can differ."""
+    m = cfg.moe
+    return dataclasses.replace(
+        cfg, moe=dataclasses.replace(m, capacity_factor=m.n_experts / m.top_k)
+    )
+
+
+@pytest.fixture(scope="module")
+def ring_case() -> Case:
+    return _case("mixtral-8x7b", _no_drop)
+
+
+def _ring_prompt(case: Case, p: int) -> np.ndarray:
+    return np.random.default_rng(p).integers(0, case.jcfg.vocab_raw, (B, p)).astype(np.int32)
+
+
+def _generate_both(case: Case, prompt: np.ndarray):
+    with jax.disable_jit():
+        ref = JServeEngine(jbuild(case.jcfg), params=case.jparams).generate(prompt, T)
+    port = ServeEngine(build_model(case.tcfg), params=case.tparams,
+                       device="cpu").generate(prompt, T)
+    return port, ref
+
+
+def _next_token_logits(case, prompt, gen, lib):
+    """Both frameworks' forward over prompt + ``gen``, at the positions
+    that predict ``gen``."""
+    seq = np.concatenate([prompt, gen], axis=1)
+    p = prompt.shape[1]
+    if lib == "jax":
+        logits, _ = _ref_forward(case.jcfg, case.jparams, seq)
+    else:
+        logits = ttr.forward(case.tcfg, case.tparams, torch.from_numpy(seq))[0].numpy()
+    return logits[:, p - 1 : p - 1 + T]
+
+
+@pytest.mark.parametrize("p", [8, 16, 24])
+def test_sliding_window_decode_matches_forward(ring_case, p):
+    """Below, at and not at a multiple of the window, the port's decode is
+    its own and the reference's ``forward`` argmax under the token rule; at
+    P = 16 its tokens are the reference's decode's."""
+    prompt = _ring_prompt(ring_case, p)
+    port, ref = _generate_both(ring_case, prompt)
+    for lib in ("torch", "jax"):
+        fwd = _next_token_logits(ring_case, prompt, port, lib)
+        _tokens_agree(port, fwd.argmax(-1), fwd)
+    if p % ring_case.jcfg.window == 0:
+        _greedy_agree(port, ref, _next_token_logits(ring_case, prompt, ref, "jax"))
+
+
+@pytest.mark.parametrize("p", [8, 24])
+def test_reference_sliding_window_decode_fault(ring_case, p):
+    """Pins the reference's fault (ROADMAP Queue 3): its prefill keeps
+    ``k[:, -window:]`` (a ring only P long when P < window; token ``t`` at
+    slot ``t - (P - window)``) while decode writes at ``pos % window``, so
+    its decode leaves ``forward``'s argmax at clear positions."""
+    prompt = _ring_prompt(ring_case, p)
+    _, ref = _generate_both(ring_case, prompt)
+    fwd = _next_token_logits(ring_case, prompt, ref, "jax")
+    clear = _gap(fwd) > TOKEN_MARGIN
+    assert (ref != fwd.argmax(-1))[clear].any()
