@@ -1,0 +1,114 @@
+#!/usr/bin/env python3
+"""Chosen paths of ``chip_smoke.py``'s LM phase (phase 11), alone, on one
+CUDA card: ``a`` qwen3-4b, ``b`` 2-layer mixtral, ``d`` one period of
+jamba, ``e`` xlstm-350m, ``f`` whisper-medium, ``c`` the ten archs at
+smoke size card against host.
+
+- ``--measure``: the served-vs-forward tolerances of the paths run are
+  lifted, so that ``lm_check`` logs the drift and judges nothing; how
+  the tolerances in ``chip_smoke.py`` were set.
+- ``--sums``: each traced serve also logs its device time as
+  ``key_averages`` sums it, beside ``chip_smoke.device_time``'s sum
+  over the raw trace (take paths whose launches ``key_averages`` gets
+  through in minutes: ``b``, ``d``, ``f``).
+- ``--parent DIR`` (an unpacked earlier tree of this repository): the
+  paths run twice in turns, parent, this tree, this tree, parent, with
+  the chunked attention (``models/attention._sdpa_chunked``) of DIR in
+  place of this tree's: how a change of its blocks moves the
+  served-vs-forward drift.  DIR's chunked attention takes causal
+  self-attention only, so this reproduces the comparison on path ``b``
+  alone (``d``'s attention is chunked too, but DIR cannot build jamba).
+
+Run from the repository root:
+
+    python3 experiments/lm_paths.py b d e f [--measure] [--sums] [--parent DIR]
+"""
+
+import importlib.util
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def parent_chunked(parent: str):
+    """DIR's ``_sdpa_chunked`` under this tree's signature."""
+    spec = importlib.util.spec_from_file_location(
+        "parent_attention",
+        os.path.join(parent, "src", "repro_torch", "models", "attention.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+
+    def chunked(q, k, v, n_rep, *, causal=True, window=0):
+        if not causal:
+            raise ValueError("the parent's chunked attention is causal only")
+        return mod._sdpa_chunked(q, k, v, n_rep, window=window)
+
+    return chunked
+
+
+def both_sums(cs):
+    """``cs.device_time`` that also logs ``key_averages``' sum."""
+    raw = cs.device_time
+
+    def device_time(prof):
+        busy, top = raw(prof)
+        t = time.perf_counter()
+        averaged = sum(getattr(e, "self_device_time_total", 0.0)
+                       for e in prof.key_averages()) / 1e6
+        cs.log(f"lm_paths: device time {busy:.6f} s over the raw trace, "
+               f"{averaged:.6f} s by key_averages "
+               f"({time.perf_counter() - t:.1f} s to average)")
+        return busy, top
+
+    cs.device_time = device_time
+
+
+def main() -> int:
+    args = sys.argv[1:]
+    measure = "--measure" in args
+    sums = "--sums" in args
+    parent = args[args.index("--parent") + 1] if "--parent" in args else None
+    paths = [a for a in args if a in tuple("abcdef")]
+    sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.models import attention
+
+    if not torch.cuda.is_available():
+        print("lm_paths: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    if measure:
+        for name in ("LM_TOL_DEEP", "LM_TOL_SHALLOW", "LM_TOL_JAMBA", "LM_TOL_XLSTM",
+                     "LM_TOL_WHISPER"):
+            setattr(cs, name, float("inf"))
+    if sums:
+        both_sums(cs)
+    turns = [("this tree", attention._sdpa_chunked)]
+    if parent:
+        mine, theirs = attention._sdpa_chunked, parent_chunked(parent)
+        turns = [("parent", theirs), ("this tree", mine), ("this tree", mine),
+                 ("parent", theirs)]
+    t0 = time.perf_counter()
+    for name, chunked in turns:
+        attention._sdpa_chunked = chunked
+        for key in paths:
+            t = time.perf_counter()
+            if key == "c":
+                for arch in cs.LM_ARCHS:
+                    cs.lm_cuda_vs_cpu(torch, np, arch)
+            else:
+                getattr(cs, f"lm_{key}")(torch, np)
+            cs.log(f"lm_paths: ({key}) with {name}'s chunked attention "
+                   f"{time.perf_counter() - t:.1f} s")
+    cs.log(f"lm_paths: {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

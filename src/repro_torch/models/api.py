@@ -1,50 +1,67 @@
 """Public model API (port of ``src/repro/models/api.py``): ``build_model(cfg)``
-returns a ``Model`` facade with init / loss / prefill / decode.
+returns a ``Model`` facade with init / forward / loss / prefill / decode,
+over ``models/transformer.py`` for decoder-only models and
+``models/encdec.py`` for encoder-decoder ones (whose batches carry the
+frame embeddings as ``frontend_embeds``).
 
 The dry-run specs (``input_specs``, ``params_spec``, ``cache_spec``) are
-not ported yet (ROADMAP Queue 1 item 4e); encoder-decoder models raise
-``NotImplementedError`` (item 4c).
+not ported yet (ROADMAP Queue 1 item 4e).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+from torch import nn
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.executor import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
 
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
 
-    def init_params(self, seed: int = 0, device="cuda") -> transformer.Transformer:
-        return transformer.init_params(self.cfg, seed, device)
+    @property
+    def _impl(self):
+        return encdec if self.cfg.enc_dec else transformer
 
-    def load_params(self, state_dict: dict, device="cuda") -> transformer.Transformer:
-        """A ``Transformer`` on ``device`` holding ``state_dict`` (e.g. from
-        ``convert.from_jax_params``)."""
-        params = transformer.Transformer(self.cfg, device=resolve_device(device))
+    def init_params(self, seed: int = 0, device="cuda") -> nn.Module:
+        return self._impl.init_params(self.cfg, seed, device)
+
+    def load_params(self, state_dict: dict, device="cuda") -> nn.Module:
+        """The model's parameters on ``device`` holding ``state_dict`` (e.g.
+        from ``convert.from_jax_params``)."""
+        cls = encdec.EncDec if self.cfg.enc_dec else transformer.Transformer
+        params = cls(self.cfg, device=resolve_device(device))
         params.load_state_dict(state_dict)
         return params
 
+    def forward(self, params, batch: dict):
+        """Full-sequence f32 logits and the MoE aux metrics."""
+        return self._impl.forward(
+            self.cfg, params, batch["tokens"], batch.get("frontend_embeds")
+        )
+
     def loss_fn(self, params, batch: dict):
-        return transformer.loss_fn(self.cfg, params, batch)
+        return self._impl.loss_fn(self.cfg, params, batch)
 
     def prefill(self, params, batch: dict, max_seq: int | None = None):
-        return transformer.prefill(
+        return self._impl.prefill(
             self.cfg, params, batch["tokens"], batch.get("frontend_embeds"),
             max_seq=max_seq,
         )
 
+    def decode_logits(self, params, cache, tokens):
+        return self._impl.decode_logits(self.cfg, params, cache, tokens)
+
     def decode_step(self, params, cache, tokens):
-        return transformer.decode_step(self.cfg, params, cache, tokens)
+        return self._impl.decode_step(self.cfg, params, cache, tokens)
 
     def init_cache(self, batch: int, max_seq: int, device="cuda"):
-        return transformer.init_cache(self.cfg, batch, max_seq, resolve_device(device))
+        return self._impl.init_cache(self.cfg, batch, max_seq, resolve_device(device))
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    transformer.check_supported(cfg)
     return Model(cfg)

@@ -1,5 +1,6 @@
 """GQA attention: qk-norm (qwen3), QKV bias (qwen2), sliding window
-(mixtral), and KV-cache decode (port of ``src/repro/models/attention.py``).
+(mixtral), bidirectional (whisper encoder), cross-attention (whisper
+decoder), and KV-cache decode (port of ``src/repro/models/attention.py``).
 
 The train/prefill path computes scores with ``torch`` matmuls: dense up to
 ``CHUNK_THRESHOLD`` tokens, blockwise with an online softmax beyond (the
@@ -10,8 +11,7 @@ layer keeps a ring of ``min(max_seq, window)`` slots; token ``t`` lives
 in slot ``t % ring``, from prefill on.
 
 Not ported here: the ``REPRO_OPT_SHARDING`` branches, the ``shard_map``
-cache write and ``rules.constrain`` (ROADMAP Queue 1 item 4e), and the
-cross-attention functions (item 4c, with whisper).
+cache write and ``rules.constrain`` (ROADMAP Queue 1 item 4e).
 """
 
 from __future__ import annotations
@@ -30,9 +30,11 @@ KV_BLOCK = 1024
 
 
 class Attention(nn.Module):
-    """One self-attention sublayer's weights (``init_attn``)."""
+    """One attention sublayer's weights (``init_attn``); ``cross`` adds
+    the encoder side's norm ``norm_kv``."""
 
-    def __init__(self, cfg, generator: torch.Generator | None = None, device=None):
+    def __init__(self, cfg, generator: torch.Generator | None = None, device=None,
+                 *, cross: bool = False):
         super().__init__()
         d, hd = cfg.d_model, cfg.d_head
         h, k = cfg.n_heads, cfg.n_kv
@@ -54,6 +56,8 @@ class Attention(nn.Module):
         if cfg.qk_norm:
             self.q_norm = P((hd,), None, device, fill=1.0)
             self.k_norm = P((hd,), None, device, fill=1.0)
+        if cross:
+            self.norm_kv = P((d,), None, device, fill=1.0)
 
 
 def _project_qkv(p: Attention, cfg, xq: torch.Tensor, xkv: torch.Tensor):
@@ -88,15 +92,21 @@ def _sdpa(q, k, v, mask, n_rep: int):
     return out.reshape(b, sq, h, hd)
 
 
-def _sdpa_chunked(q, k, v, n_rep: int, *, window: int = 0):
-    """Flash-style causal blockwise attention: O(S·block) memory instead
-    of O(S²).
+def _sdpa_chunked(q, k, v, n_rep: int, *, causal: bool = True, window: int = 0):
+    """Flash-style blockwise attention: O(S·block) memory instead of
+    O(S²).
 
     A loop over query blocks, and inside it over kv blocks with an online
     (m, l, acc) softmax; causal/window masks are applied per block pair
-    from absolute positions.  Block sizes are the reference's: halved
-    until they divide the length.  A kv block that every query of the
-    block masks is skipped: in the reference it contributes exactly
+    from absolute positions.
+
+    Blocks are the reference's ``Q_BLOCK`` x ``KV_BLOCK``.  Where they do
+    not divide a length, the reference halves them until they do (8-token
+    blocks at 2,600 tokens: ~53,000 block pairs, a Python loop of ~10^6
+    launches here); the port pads the last block instead, masks the
+    padded keys and drops the padded queries — the same softmax over the
+    same keys, summed in other blocks.  A kv block that every query of
+    the block masks is skipped: in the reference it contributes exactly
     nothing (a later block's ``corr = exp(-1e9 - m) = 0`` erases one that
     comes first, ``p = exp(-1e9 - m) = 0`` one that comes after).
     """
@@ -104,21 +114,24 @@ def _sdpa_chunked(q, k, v, n_rep: int, *, window: int = 0):
     sk = k.shape[1]
     qb = min(Q_BLOCK, sq)
     kb = min(KV_BLOCK, sk)
-    while sq % qb:
-        qb //= 2
-    while sk % kb:
-        kb //= 2
+    kv_len = sk
+    if sk % kb:
+        pad = k.new_zeros((b, -sk % kb, *k.shape[2:]))
+        k, v = torch.cat([k, pad], 1), torch.cat([v, pad], 1)
+        sk = k.shape[1]
     scale = 1.0 / (hd**0.5)
-    out = torch.empty_like(q)
+    out = q.new_empty((b, -(-sq // qb) * qb, h, hd))
     dev = q.device
     for q0 in range(0, sq, qb):
         qblk = q[:, q0 : q0 + qb].float()
+        if qblk.shape[1] < qb:  # the last block, padded
+            qblk = torch.cat([qblk, qblk.new_zeros((b, qb - qblk.shape[1], h, hd))], 1)
         q_pos = torch.arange(q0, q0 + qb, device=dev)
         m_run = torch.full((b, h, qb), -torch.inf, device=dev)
         l_run = torch.zeros((b, h, qb), device=dev)
         acc = torch.zeros((b, h, qb, hd), device=dev)
         for k0 in range(0, sk, kb):
-            if k0 > q0 + qb - 1:
+            if causal and k0 > q0 + qb - 1:
                 break
             if window > 0 and k0 + kb - 1 <= q0 - window:
                 continue
@@ -127,9 +140,14 @@ def _sdpa_chunked(q, k, v, n_rep: int, *, window: int = 0):
             vr = v[:, k0 : k0 + kb].repeat_interleave(n_rep, dim=2)
             k_pos = torch.arange(k0, k0 + kb, device=dev)
             s = torch.einsum("bqhd,bkhd->bhqk", qblk, kr.float()) * scale
-            mask = k_pos[None, :] <= q_pos[:, None]
+            if causal:
+                mask = k_pos[None, :] <= q_pos[:, None]
+            else:
+                mask = torch.ones((qb, kb), dtype=torch.bool, device=dev)
             if window > 0:
                 mask &= k_pos[None, :] > q_pos[:, None] - window
+            if sk > kv_len:
+                mask &= k_pos[None, :] < kv_len
             s = torch.where(mask, s, NEG_INF)
             m_new = torch.maximum(m_run, s.amax(-1))
             p = torch.exp(s - m_new[..., None])
@@ -141,7 +159,7 @@ def _sdpa_chunked(q, k, v, n_rep: int, *, window: int = 0):
             m_run = m_new
         blk = acc / torch.clamp_min(l_run, 1e-30)[..., None]
         out[:, q0 : q0 + qb] = blk.transpose(1, 2).to(q.dtype)
-    return out
+    return out[:, :sq]
 
 
 def _attend_out(p: Attention, x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
@@ -163,22 +181,23 @@ def attend_full(
     x: torch.Tensor,
     positions: torch.Tensor,
     *,
+    causal: bool = True,
     window: int = 0,
     return_kv: bool = False,
 ):
-    """Train / prefill causal self-attention over the whole sequence (the
-    reference's ``causal=False``, for whisper's encoder, is item 4c)."""
+    """Train / prefill self-attention over the whole sequence; causal
+    unless ``causal=False`` (whisper's encoder)."""
     xn = layers.rms_norm(x, p.norm, cfg.norm_eps)
     q, k, v = _project_qkv(p, cfg, xn, xn)
     q, k = _rope(cfg, q, k, positions)
     s = x.shape[1]
     n_rep = cfg.n_heads // cfg.n_kv
     if s > CHUNK_THRESHOLD:
-        out = _sdpa_chunked(q, k, v, n_rep, window=window)
+        out = _sdpa_chunked(q, k, v, n_rep, causal=causal, window=window)
     else:
         i = torch.arange(s, device=x.device)[:, None]
         j = torch.arange(s, device=x.device)[None, :]
-        mask = j <= i
+        mask = j <= i if causal else torch.ones((s, s), dtype=torch.bool, device=x.device)
         if window > 0:
             mask = mask & (j > i - window)
         out = _sdpa(q, k, v, mask[None], n_rep)
@@ -261,3 +280,29 @@ def fill_cache(cache: dict, k: torch.Tensor, v: torch.Tensor, *, ring: bool) -> 
     slots = torch.arange(first, s, device=k.device) % n
     cache["k"][:, slots] = k[:, first:].to(cache["k"].dtype)
     cache["v"][:, slots] = v[:, first:].to(cache["v"].dtype)
+
+
+def attend_cross(p: Attention, cfg, x, kv_cache: dict):
+    """Cross-attention against precomputed encoder K/V (whisper decoder);
+    blockwise above ``CHUNK_THRESHOLD`` queries, where ``_sdpa_chunked``
+    pads the kv to a block multiple and masks the padding."""
+    xn = layers.rms_norm(x, p.norm, cfg.norm_eps)
+    dt = x.dtype
+    q = (xn @ p.wq.to(dt)).reshape(*x.shape[:2], cfg.n_heads, cfg.d_head)
+    k, v = kv_cache["k"].to(dt), kv_cache["v"].to(dt)
+    n_rep = cfg.n_heads // cfg.n_kv
+    if x.shape[1] > CHUNK_THRESHOLD:
+        out = _sdpa_chunked(q, k, v, n_rep, causal=False)
+    else:
+        mask = torch.ones((x.shape[1], k.shape[1]), dtype=torch.bool, device=x.device)
+        out = _sdpa(q, k, v, mask[None], n_rep)
+    return _attend_out(p, x, out)
+
+
+def encode_cross_kv(p: Attention, cfg, enc_out) -> dict:
+    """A decoder layer's cross K/V from the encoder's output."""
+    xn = layers.rms_norm(enc_out, p.norm_kv, cfg.norm_eps)
+    dt = enc_out.dtype
+    shape = (*enc_out.shape[:2], cfg.n_kv, cfg.d_head)
+    return {"k": (xn @ p.wk.to(dt)).reshape(shape),
+            "v": (xn @ p.wv.to(dt)).reshape(shape)}

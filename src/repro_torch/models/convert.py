@@ -1,19 +1,26 @@
 """The reference's parameter tree → the port's parameters.
 
-``from_jax_params(tree)`` takes the tree ``repro.models.transformer
-.init_params`` builds, as NumPy arrays (e.g. ``jax.device_get(params)``):
-top-level leaves (``embed``, ``final_norm``, ``lm_head``, ``frontend``)
-and ``groups[g][slot]``, each leaf stacked on a leading ``n_repeat`` axis.
-It returns a ``state_dict`` for ``transformer.Transformer`` of the same
-config: the groups unrolled into ``layers.<i>.<slot>.<leaf>`` in layer
-order, every tensor f32 on the CPU with the reference's layout.  Neither
-``jax`` nor ``repro`` is imported.
+``from_jax_params(tree)`` takes the tree the reference's ``init_params``
+builds, as NumPy arrays (e.g. ``jax.device_get(params)``): top-level
+leaves (``embed``, ``final_norm``, ``lm_head``, ``enc_norm``,
+``frontend``) and groups of stacked layers, each leaf on a leading
+``n_repeat`` axis — ``groups[g][slot]`` for a decoder-only model
+(``repro.models.transformer``), ``enc_groups`` and ``dec_groups`` for an
+encoder-decoder one (``repro.models.encdec``).  It returns a
+``state_dict`` for the port's ``transformer.Transformer`` or
+``encdec.EncDec`` of the same config: the groups unrolled in layer order
+into ``layers.<i>.<slot>.<leaf>`` (``dec_groups`` too) and
+``enc_layers.<i>.<slot>.<leaf>``, every tensor f32 on the CPU with the
+reference's layout.  Neither ``jax`` nor ``repro`` is imported.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+# the reference's stacked groups -> the port's unrolled layer lists
+GROUPS = {"groups": "layers", "dec_groups": "layers", "enc_groups": "enc_layers"}
 
 
 def _flatten(tree, prefix: str, out: dict, index=None) -> None:
@@ -36,10 +43,11 @@ def _n_repeat(group: dict) -> int:
 
 def from_jax_params(tree: dict) -> dict[str, torch.Tensor]:
     out: dict[str, torch.Tensor] = {}
-    _flatten({k: v for k, v in tree.items() if k != "groups"}, "", out)
-    layer = 0
-    for group in tree["groups"]:
-        for r in range(_n_repeat(group)):
-            _flatten(group, f"layers.{layer}.", out, index=r)
-            layer += 1
+    _flatten({k: v for k, v in tree.items() if k not in GROUPS}, "", out)
+    for key, name in GROUPS.items():
+        layer = 0
+        for group in tree.get(key, ()):
+            for r in range(_n_repeat(group)):
+                _flatten(group, f"{name}.{layer}.", out, index=r)
+                layer += 1
     return out

@@ -73,12 +73,37 @@ def layer_norm(
     return y.to(dt) * w.to(dt) + b.to(dt)
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid``: JAX lowers it to ``1 / (1 + exp(-x))`` in every
+    dtype, each op rounded to x's dtype; spelled out the same way, the
+    port's bf16 numbers are the reference's (``torch.sigmoid`` rounds
+    once, and differs in ~1/3 of the bf16 values)."""
+    return 1 / (1 + torch.exp(-x))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
-    """``x * jax.nn.sigmoid(x)``.  XLA:CPU evaluates a bf16 sigmoid as
-    ``1 / (1 + exp(-x))`` with every op rounded to bf16; spelled out the
-    same way, the port's bf16 numbers are the reference's
-    (``torch.sigmoid`` rounds once, and differs in ~1/3 of the values)."""
-    return x * (1 / (1 + torch.exp(-x)))
+    """``x * jax.nn.sigmoid(x)``."""
+    return x * sigmoid(x)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``, i.e. ``jnp.logaddexp(x, 0)``:
+    ``max(x, 0) + log1p(exp(-|x|))`` with no threshold (``F.softplus``
+    returns ``x`` above 20)."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_sigmoid``: ``-softplus(-x)``."""
+    return -softplus(-x)
+
+
+def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.einsum``'s product of two dtypes: both operands cast to the
+    wider one (a bf16 weight against f32 activations multiplies in f32;
+    ``torch.matmul`` refuses mixed dtypes)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -7,10 +7,10 @@ group's parameters on a leading axis and ``lax.scan``s over it; the port
 keeps one module per layer (``Transformer.layers[i]``, a ``ModuleDict``
 of the period's sublayers under the reference's slot names) and loops.
 
-Sublayer kinds ported: ``attn``, ``attn_swa``, ``mlp``, ``moe``; the
-``vit`` frontend stub.  ``mamba``, ``mlstm``, ``slstm``, ``cross``,
-``attn_bidir`` and encoder-decoder models raise ``NotImplementedError``
-(ROADMAP Queue 1 item 4c).
+Sublayer kinds: ``attn``, ``attn_swa``, ``attn_bidir``, ``cross``,
+``mlp``, ``moe``, ``mamba``, ``mlstm`` and ``slstm``; the ``vit``
+frontend stub.  Encoder-decoder models assemble these sublayers in
+``models/encdec.py``.
 
 The sliding-window cache differs from the reference's on purpose: the
 reference's prefill keeps ``k[:, -window:]`` (the prompt token ``t`` at
@@ -30,29 +30,13 @@ from torch import nn
 import torch.nn.functional as F
 
 from repro_torch.core.executor import resolve_device
-from repro_torch.models import attention, layers, moe
+from repro_torch.models import attention, layers, mamba, moe, xlstm
 
-UNPORTED_KINDS = ("mamba", "mlstm", "slstm", "cross", "attn_bidir")
+RECURRENT_KINDS = ("mamba", "mlstm", "slstm")
 
 
 def _slot(i: int, kind: str) -> str:
     return f"{i:02d}_{kind}"
-
-
-def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for what this port does not run yet."""
-    if cfg.enc_dec:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported yet "
-            "(ROADMAP Queue 1 item 4c)"
-        )
-    for _, period in cfg.layer_plan():
-        for kind in period:
-            if kind in UNPORTED_KINDS:
-                raise NotImplementedError(
-                    f"{cfg.name}: sublayer kind {kind!r} is not ported yet "
-                    "(ROADMAP Queue 1 item 4c)"
-                )
 
 
 # ---------------------------------------------------------------------------
@@ -61,13 +45,33 @@ def check_supported(cfg) -> None:
 
 
 def init_sublayer(kind: str, cfg, generator=None, device=None) -> nn.Module:
-    if kind in ("attn", "attn_swa"):
-        return attention.Attention(cfg, generator, device)
+    if kind in ("attn", "attn_swa", "attn_bidir", "cross"):
+        return attention.Attention(cfg, generator, device, cross=kind == "cross")
     if kind == "mlp":
         return layers.MLP(cfg.d_model, cfg.d_ff, generator, device, norm=True)
     if kind == "moe":
         return moe.MoE(cfg, generator, device)
-    raise NotImplementedError(f"sublayer kind {kind!r} (ROADMAP Queue 1 item 4c)")
+    if kind == "mamba":
+        return mamba.Mamba(cfg, generator, device)
+    if kind == "mlstm":
+        return xlstm.MLSTM(cfg, generator, device)
+    if kind == "slstm":
+        return xlstm.SLSTM(cfg, generator, device)
+    raise ValueError(kind)
+
+
+def stack_layers(cfg, plan, generator=None, device=None):
+    """A layer plan's modules, one ``ModuleDict`` of the period's
+    sublayers a layer, and each layer's period."""
+    mods, periods = nn.ModuleList(), []
+    for n_repeat, period in plan:
+        for _ in range(n_repeat):
+            mods.append(nn.ModuleDict({
+                _slot(i, kind): init_sublayer(kind, cfg, generator, device)
+                for i, kind in enumerate(period)
+            }))
+            periods.append(period)
+    return mods, periods
 
 
 class Frontend(nn.Module):
@@ -88,7 +92,6 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg, generator: torch.Generator | None = None, device=None):
         super().__init__()
-        check_supported(cfg)
         d, v = cfg.d_model, cfg.vocab
         self.embed = layers.param((v, d), generator, device)
         self.final_norm = layers.param((d,), None, device, fill=1.0)
@@ -96,15 +99,7 @@ class Transformer(nn.Module):
             self.lm_head = layers.param((d, v), generator, device)
         if cfg.frontend == "vit":
             self.frontend = Frontend(cfg, generator, device)
-        self.layers = nn.ModuleList()
-        self.periods: list[tuple[str, ...]] = []
-        for n_repeat, period in cfg.layer_plan():
-            for _ in range(n_repeat):
-                self.layers.append(nn.ModuleDict({
-                    _slot(i, kind): init_sublayer(kind, cfg, generator, device)
-                    for i, kind in enumerate(period)
-                }))
-                self.periods.append(period)
+        self.layers, self.periods = stack_layers(cfg, cfg.layer_plan(), generator, device)
 
     @property
     def device(self) -> torch.device:
@@ -122,9 +117,12 @@ def init_params(cfg, seed: int = 0, device="cuda") -> Transformer:
 
 @dataclasses.dataclass
 class Cache:
-    """Decode state: per layer, per attention slot, ``{"k", "v"}`` bf16
-    tensors ``(B, S_max | ring, K, hd)`` written in place; ``pos`` is the
-    next write position."""
+    """Decode state: per layer, per stateful slot, a dict of tensors
+    updated in place — an attention slot's ``{"k", "v"}`` bf16
+    ``(B, S_max | ring, K, hd)`` (cross: the encoder's ``(B, T, K, hd)``),
+    a recurrent slot's state (``mamba.init_mamba_cache``,
+    ``xlstm.init_mlstm_cache``, ``xlstm.init_slstm_cache``); ``pos`` is
+    the next write position."""
 
     layers: list[dict[str, dict[str, torch.Tensor]]]
     pos: int = 0
@@ -134,7 +132,15 @@ def init_sublayer_cache(kind: str, cfg, batch: int, max_seq: int, device=None):
     if kind in ("attn", "attn_swa"):
         cap = min(max_seq, cfg.window) if kind == "attn_swa" and cfg.window else max_seq
         return attention.init_cache(cfg, batch, cap, device=device)
-    return None  # mlp / moe are stateless
+    if kind == "cross":
+        return attention.init_cache(cfg, batch, cfg.n_frontend_tokens or 1, device=device)
+    if kind == "mamba":
+        return mamba.init_mamba_cache(cfg, batch, device=device)
+    if kind == "mlstm":
+        return xlstm.init_mlstm_cache(cfg, batch, device)
+    if kind == "slstm":
+        return xlstm.init_slstm_cache(cfg, batch, device)
+    return None  # attn_bidir / mlp / moe keep no decode state
 
 
 def init_cache(cfg, batch: int, max_seq: int, device=None) -> Cache:
@@ -158,37 +164,52 @@ def init_cache(cfg, batch: int, max_seq: int, device=None) -> Cache:
 def apply_sublayer_seq(kind: str, p, cfg, x, positions, *, want_kv: bool = False):
     """Full-sequence path (train / prefill). Returns (x, (k, v)|None, aux)."""
     aux, kv = {}, None
-    if kind in ("attn", "attn_swa"):
+    if kind in ("attn", "attn_swa", "attn_bidir"):
         window = cfg.window if kind == "attn_swa" else 0
+        causal = kind != "attn_bidir"
         if want_kv:
             x, kv = attention.attend_full(
-                p, cfg, x, positions, window=window, return_kv=True
+                p, cfg, x, positions, causal=causal, window=window, return_kv=True
             )
         else:
-            x = attention.attend_full(p, cfg, x, positions, window=window)
+            x = attention.attend_full(p, cfg, x, positions, causal=causal, window=window)
     elif kind == "mlp":
         xn = layers.rms_norm(x, p.norm, cfg.norm_eps)
         x = x + layers.apply_mlp(p, xn)
     elif kind == "moe":
         x, aux = moe.apply_moe(p, cfg, x)
+    elif kind == "mamba":
+        x = mamba.apply_mamba(p, cfg, x)
+    elif kind == "mlstm":
+        x = xlstm.apply_mlstm(p, cfg, x)
+    elif kind == "slstm":
+        x = xlstm.apply_slstm(p, cfg, x)
     else:
-        raise NotImplementedError(f"sublayer kind {kind!r} (ROADMAP Queue 1 item 4c)")
+        raise ValueError(kind)
     return x, kv, aux
 
 
 def apply_sublayer_step(kind: str, p, cfg, x, cache, pos: int):
-    """Single-token decode path; attention caches are updated in place."""
+    """Single-token decode path; caches are updated in place."""
     if kind == "attn":
         return attention.attend_decode(p, cfg, x, cache, pos)
     if kind == "attn_swa":  # layer_plan gives it only where window > 0
         return attention.attend_rolling(p, cfg, x, cache, pos)
+    if kind == "cross":
+        return attention.attend_cross(p, cfg, x, cache)
     if kind == "mlp":
         xn = layers.rms_norm(x, p.norm, cfg.norm_eps)
         return x + layers.apply_mlp(p, xn)
     if kind == "moe":
         x, _ = moe.apply_moe(p, cfg, x, capacity_factor=4.0)
         return x
-    raise NotImplementedError(f"sublayer kind {kind!r} (ROADMAP Queue 1 item 4c)")
+    if kind == "mamba":
+        return mamba.apply_mamba(p, cfg, x, cache)
+    if kind == "mlstm":
+        return xlstm.apply_mlstm(p, cfg, x, cache)
+    if kind == "slstm":
+        return xlstm.apply_slstm(p, cfg, x, cache)
+    raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -253,7 +274,8 @@ def prefill(cfg, params: Transformer, tokens, frontend_embeds=None,
     """Run the full prompt, return (last_logits f32 (B, V), cache ready for
     decode at ``pos = S``).  The cache holds ``max_seq`` slots (the prompt's
     length if None); a sliding-window layer's ring holds
-    ``min(max_seq, window)``, token ``t`` at slot ``t % ring``."""
+    ``min(max_seq, window)``, token ``t`` at slot ``t % ring``.  Recurrent
+    sublayers leave their final state (``_prefill_recurrent``)."""
     x = embed_inputs(cfg, params, tokens, frontend_embeds)
     s = x.shape[1]
     max_seq = s if max_seq is None else max_seq
@@ -264,6 +286,9 @@ def prefill(cfg, params: Transformer, tokens, frontend_embeds=None,
     for layer, period, lcache in zip(params.layers, params.periods, cache.layers):
         for i, kind in enumerate(period):
             slot = _slot(i, kind)
+            if kind in RECURRENT_KINDS:
+                x = _prefill_recurrent(kind, layer[slot], cfg, x, lcache[slot])
+                continue
             x, kv, _ = apply_sublayer_seq(
                 kind, layer[slot], cfg, x, positions, want_kv=slot in lcache
             )
@@ -272,6 +297,19 @@ def prefill(cfg, params: Transformer, tokens, frontend_embeds=None,
                 attention.fill_cache(lcache[slot], *kv, ring=ring)
     cache.pos = s
     return lm_logits(cfg, params, x[:, -1]), cache
+
+
+def _prefill_recurrent(kind: str, p, cfg, x, cache: dict):
+    """Sequence forward of a recurrent sublayer that leaves its final
+    state in ``cache``: mamba's chunked scan with ``return_state``; mLSTM
+    and sLSTM step the recurrence token by token from the initial state,
+    as the reference does."""
+    if kind == "mamba":
+        x, state = mamba.apply_mamba(p, cfg, x, return_state=True)
+        cache.update(state)
+        return x
+    step = xlstm.apply_mlstm if kind == "mlstm" else xlstm.apply_slstm
+    return torch.cat([step(p, cfg, x[:, t : t + 1], cache) for t in range(x.shape[1])], 1)
 
 
 def decode_logits(cfg, params: Transformer, cache: Cache, tokens) -> torch.Tensor:

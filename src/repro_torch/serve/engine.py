@@ -1,9 +1,14 @@
 """Batched LM serving engine (port of ``src/repro/serve/engine.py``):
-prefill to ``max_seq``, then a greedy decode loop.
+prefill to ``max_seq``, then a greedy decode loop through the model
+facade (``Model.prefill``, ``Model.decode_logits``), for decoder-only
+and encoder-decoder models alike; ``**extras`` (``frontend_embeds``:
+image patches, audio frames) go to the prefill.
 
-The cache is per-layer ``(B, S_max, K, hd)`` bf16 tensors written in place
-(the counterpart of the reference's ``donate_argnums``).  The engine runs
-on the card unless the caller passes ``device="cpu"``; without a card it
+The cache (``models.transformer.Cache``) is updated in place, the
+counterpart of the reference's ``donate_argnums``: attention K/V tensors
+``(B, S_max, K, hd)`` written a token at a time, recurrent states
+(mamba, mLSTM, sLSTM) replaced a step at a time.  The engine runs on the
+card unless the caller passes ``device="cpu"``; without a card it
 raises.
 
 Query serving over *sorted ELSAR output* does not go through this decode
@@ -47,8 +52,6 @@ class ServeEngine:
     def generate(
         self, prompts: np.ndarray, max_new_tokens: int = 16, **extras
     ) -> np.ndarray:
-        from repro_torch.models import transformer
-
         cfg, dev = self.model.cfg, self.device
         batch = {"tokens": torch.as_tensor(np.asarray(prompts), device=dev), **{
             k: torch.as_tensor(np.asarray(v), device=dev) for k, v in extras.items()
@@ -64,7 +67,7 @@ class ServeEngine:
         out = [tok.cpu().numpy()]
         t1 = time.perf_counter()
         for _ in range(max_new_tokens - 1):
-            logits = transformer.decode_logits(cfg, self.params, cache, tok)
+            logits = self.model.decode_logits(self.params, cache, tok)
             finite &= torch.isfinite(logits).all()
             tok = torch.argmax(logits, dim=-1).to(torch.int32)
             out.append(tok.cpu().numpy())

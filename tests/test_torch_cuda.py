@@ -5,8 +5,8 @@ bytes, the per-partition chain and the dual-input RMI call against
 their plain versions, a cached model reused on the card, a CUDA
 ``SortedFileIndex`` against a CPU one, and the mesh-scale sort (router,
 ``make_sort_fn``, ``sort_file_distributed``) at world size 1 on NCCL
-and on gloo; and the LM serving path at smoke size (the seven ported
-archs' forward, prefill and decode on the card against the host,
+and on gloo; and the LM serving path at smoke size (all ten archs'
+forward, prefill and decode on the card against the host,
 ``bucket_matrix`` on their expert ids, ``ServeEngine``'s default device,
 the blockwise attention).
 
@@ -665,7 +665,8 @@ def test_sort_file_distributed_on_card(card_mesh, tmp_path, executor):
 # ---------------------------------------------------------------------------
 
 LM_ARCHS = ("qwen3-4b", "qwen3-8b", "yi-9b", "qwen2-72b", "mixtral-8x7b",
-            "moonshot-v1-16b-a3b", "internvl2-26b")
+            "moonshot-v1-16b-a3b", "internvl2-26b", "jamba-v0.1-52b", "xlstm-350m",
+            "whisper-medium")
 LM_TOL = 5e-2  # tests/test_torch_lm_serve.py's float tolerance
 
 
@@ -685,41 +686,44 @@ def lm_card(cuda):
 def test_lm_on_card_matches_host(lm_card, arch):
     """Forward and prefill logits on the card within ``LM_TOL`` of the
     host's with the same parameters; the MoE metrics equal; decode steps
-    advance the card's cache; ``bucket_matrix`` on the expert ids
-    bit-equal."""
+    advance the card's cache (attention K/V and recurrent states, all on
+    the card); ``bucket_matrix`` on the expert ids bit-equal."""
     import copy
 
     from repro_torch.configs import registry
     from repro_torch.core import partition
     from repro_torch.models import layers, moe, transformer
+    from repro_torch.models.api import build_model
 
     cfg = registry.get_config(arch, smoke=True)
-    cpu = transformer.init_params(cfg, seed=0, device="cpu")
+    model = build_model(cfg)
+    cpu = model.init_params(seed=0, device="cpu")
     gpu = copy.deepcopy(cpu).to(lm_card)
     rng = np.random.default_rng(0)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_raw, (2, 16)).astype(np.int32))
     fe = None
-    if cfg.frontend == "vit":
+    if cfg.frontend != "none":
         fe = torch.from_numpy(rng.standard_normal(
             (2, cfg.n_frontend_tokens, cfg.d_frontend)).astype(np.float32))
-    on_card = (toks.to(lm_card), None if fe is None else fe.to(lm_card))
-    (lc, ac), (lg, ag) = (transformer.forward(cfg, cpu, toks, fe),
-                          transformer.forward(cfg, gpu, *on_card))
+    host = {"tokens": toks, "frontend_embeds": fe}
+    card = {k: None if v is None else v.to(lm_card) for k, v in host.items()}
+    (lc, ac), (lg, ag) = model.forward(cpu, host), model.forward(gpu, card)
     assert lg.is_cuda and lg.dtype == torch.float32
     torch.testing.assert_close(lg.cpu(), lc, atol=LM_TOL, rtol=LM_TOL)
-    assert float(ag["moe_dropped_frac"]) == float(ac["moe_dropped_frac"])
-    max_seq = 24 + (cfg.n_frontend_tokens if fe is not None else 0)
-    (pc, cc), (pg, cg) = (transformer.prefill(cfg, cpu, toks, fe, max_seq=max_seq),
-                          transformer.prefill(cfg, gpu, *on_card, max_seq=max_seq))
+    if cfg.moe:
+        assert float(ag["moe_dropped_frac"]) == float(ac["moe_dropped_frac"])
+    max_seq = 24 + (cfg.n_frontend_tokens if cfg.frontend == "vit" else 0)
+    (pc, cc), (pg, cg) = (model.prefill(cpu, host, max_seq=max_seq),
+                          model.prefill(gpu, card, max_seq=max_seq))
     torch.testing.assert_close(pg.cpu(), pc, atol=LM_TOL, rtol=LM_TOL)
     nxt = pc.argmax(-1).to(torch.int32)[:, None]
     for _ in range(3):
-        lc1 = transformer.decode_logits(cfg, cpu, cc, nxt)
-        lg1 = transformer.decode_logits(cfg, gpu, cg, nxt.to(lm_card))
+        lc1 = model.decode_logits(cpu, cc, nxt)
+        lg1 = model.decode_logits(gpu, cg, nxt.to(lm_card))
         torch.testing.assert_close(lg1.cpu(), lc1, atol=LM_TOL, rtol=LM_TOL)
         nxt = lc1.argmax(-1).to(torch.int32)
     assert cg.pos == cc.pos and all(
-        c["k"].is_cuda for layer in cg.layers for c in layer.values())
+        t.is_cuda for layer in cg.layers for c in layer.values() for t in c.values())
     if cfg.moe:
         p = next(layer[s] for layer in cpu.layers for s in layer if s.endswith("moe"))
         x = transformer.embed_inputs(cfg, cpu, toks)

@@ -1,11 +1,12 @@
-"""Port parity of the LM serving path for the seven ported archs at smoke
-size: ``forward`` logits and MoE metrics, ``prefill``'s last logits and
-cache, teacher-forced ``decode_step`` tokens and ``ServeEngine.generate``
-(``device="cpu"``) against ``repro.models`` / ``repro.serve.engine`` with
-the same parameters (``convert.from_jax_params`` of the reference's
-``jax.random`` init); the converter's round trip; the three archs not
-ported yet raising ``NotImplementedError``; and the sliding-window ring,
-which the port fixes and the reference gets wrong (ROADMAP Queue 3).
+"""Port parity of the LM serving path for all ten archs at smoke size:
+``forward`` logits (whisper: encoder, cross K/V, decoder) and MoE
+metrics, ``prefill``'s last logits and cache (attention K/V, cross K/V,
+mamba/mLSTM/sLSTM states), teacher-forced ``decode_step`` tokens and
+``ServeEngine.generate`` (``device="cpu"``) against ``repro.models`` /
+``repro.serve.engine`` with the same parameters
+(``convert.from_jax_params`` of the reference's ``jax.random`` init);
+the converter's round trip; and the sliding-window ring, which the port
+fixes and the reference gets wrong (ROADMAP Queue 3).
 
 The reference runs op by op (``jax.disable_jit()``): every op rounded to
 the dtype its source names, as the port rounds.  Compiled, XLA:CPU keeps
@@ -32,7 +33,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import registry as jreg  # noqa: E402
-from repro.models import transformer as jtr  # noqa: E402
+from repro.models import encdec as jed, transformer as jtr  # noqa: E402
 from repro.models.api import build_model as jbuild  # noqa: E402
 from repro.serve.engine import ServeEngine as JServeEngine  # noqa: E402
 from repro_torch.configs import registry as treg  # noqa: E402
@@ -41,8 +42,8 @@ from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
 
 ARCHS = ["qwen3-4b", "qwen3-8b", "yi-9b", "qwen2-72b", "mixtral-8x7b",
-         "moonshot-v1-16b-a3b", "internvl2-26b"]
-UNPORTED = ["jamba-v0.1-52b", "xlstm-350m", "whisper-medium"]
+         "moonshot-v1-16b-a3b", "internvl2-26b", "jamba-v0.1-52b", "xlstm-350m",
+         "whisper-medium"]
 TOL = dict(atol=5e-2, rtol=5e-2)
 TOKEN_MARGIN = 2 * TOL["atol"]
 B, P, T = 2, 16, 6  # batch, prompt, new tokens (P = mixtral's smoke window)
@@ -76,7 +77,14 @@ def _greedy_agree(got, want, ref_logits) -> None:
 
 
 def _ref_forward(jcfg, params, tokens, fe=None):
+    """The reference's full-sequence logits (whisper: encoder, cross K/V,
+    decoder) and MoE metrics."""
     with jax.disable_jit():
+        if jcfg.enc_dec:
+            cross = jed.cross_caches(jcfg, params, jed.encode(jcfg, params, fe))
+            logits = jed.decoder_forward(jcfg, params, jnp.asarray(tokens), cross,
+                                         remat=False)
+            return np.asarray(logits), {}
         logits, aux = jtr.forward(jcfg, params, jnp.asarray(tokens), fe, remat=False)
     return np.asarray(logits), {k: float(v) for k, v in aux.items()}
 
@@ -86,10 +94,10 @@ class Case:
     jcfg: object
     tcfg: object
     jparams: dict
-    tparams: ttr.Transformer
+    tparams: torch.nn.Module
     tokens: np.ndarray  # (B, P + T): the prompt and the teacher tokens
-    extras: dict  # frontend_embeds (numpy) for the vit stub
-    n_front: int
+    extras: dict  # frontend_embeds (numpy): vit patches, audio frames
+    n_front: int  # the vit stub's positions ahead of the text
 
 
 def _case(arch: str, cfg_fn=lambda c: c) -> Case:
@@ -106,6 +114,10 @@ def _case(arch: str, cfg_fn=lambda c: c) -> Case:
         n_front = jcfg.n_frontend_tokens
         extras["frontend_embeds"] = rng.standard_normal(
             (B, n_front, jcfg.d_frontend)
+        ).astype(np.float32)
+    elif jcfg.enc_dec:
+        extras["frontend_embeds"] = rng.standard_normal(
+            (B, jcfg.n_frontend_tokens, jcfg.d_model)
         ).astype(np.float32)
     return Case(jcfg, tcfg, jparams, tparams, tokens, extras, n_front)
 
@@ -124,31 +136,32 @@ def _fe(case: Case, lib: str):
 
 def test_forward_matches_reference(case):
     want, aux_j = _ref_forward(case.jcfg, case.jparams, case.tokens, _fe(case, "jax"))
-    got, aux_t = ttr.forward(case.tcfg, case.tparams, torch.from_numpy(case.tokens),
-                             _fe(case, "torch"))
+    tm = build_model(case.tcfg)
+    got, aux_t = tm.forward(case.tparams, {"tokens": torch.from_numpy(case.tokens),
+                                           "frontend_embeds": _fe(case, "torch")})
     assert got.dtype == torch.float32 and got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), want, **TOL)
-    for k in ("moe_lb_loss", "moe_z_loss"):
+    assert set(aux_t) == set(aux_j)
+    for k in set(aux_j) - {"moe_dropped_frac"}:
         np.testing.assert_allclose(float(aux_t[k]), aux_j[k], **TOL)
-    assert float(aux_t["moe_dropped_frac"]) == aux_j["moe_dropped_frac"]
-    loss_t, _ = ttr.loss_fn(case.tcfg, case.tparams, {
+    if aux_j:
+        assert float(aux_t["moe_dropped_frac"]) == aux_j["moe_dropped_frac"]
+    loss_t, _ = tm.loss_fn(case.tparams, {
         "tokens": torch.from_numpy(case.tokens),
         **{k: torch.from_numpy(v) for k, v in case.extras.items()},
     })
+    jloss = jed.loss_fn if case.jcfg.enc_dec else jtr.loss_fn
     with jax.disable_jit():
-        loss_j, _ = jtr.loss_fn(case.jcfg, case.jparams, {
+        loss_j, _ = jloss(case.jcfg, case.jparams, {
             "tokens": jnp.asarray(case.tokens), **case.extras,
         }, remat=False)
     np.testing.assert_allclose(float(loss_t), float(loss_j), **TOL)
 
 
-def _cache_leaf(jcache, L_group, r, slot, name):
-    return np.asarray(jcache["groups"][L_group][slot][name][r].astype(jnp.float32))
-
-
 def test_prefill_and_decode_match_reference(case):
-    """Prefill's last logits and cache, then ``T`` teacher-forced decode
-    steps: tokens against the reference's decode under the token rule."""
+    """Prefill's last logits and cache (every slot's tensors: attention and
+    cross K/V, recurrent states), then ``T`` teacher-forced decode steps:
+    tokens against the reference's decode under the token rule."""
     jm, tm = jbuild(case.jcfg), build_model(case.tcfg)
     max_seq = case.n_front + P + T
     prompt = case.tokens[:, :P]
@@ -164,12 +177,16 @@ def test_prefill_and_decode_match_reference(case):
     layer = 0
     for g, (n_repeat, period) in enumerate(case.jcfg.layer_plan()):
         for r in range(n_repeat):
+            assert set(cache_t.layers[layer]) == set(cache_j["groups"][g])
             for slot, c in cache_t.layers[layer].items():
-                for name in ("k", "v"):
-                    want = _cache_leaf(cache_j, g, r, slot, name)
-                    assert c[name].dtype == torch.bfloat16
-                    assert c[name].shape == want.shape
-                    np.testing.assert_allclose(c[name].float().numpy(), want, **TOL)
+                assert set(c) == set(cache_j["groups"][g][slot])
+                for name, got in c.items():
+                    want = cache_j["groups"][g][slot][name][r]
+                    assert str(got.dtype) == f"torch.{want.dtype}", (slot, name)
+                    assert tuple(got.shape) == want.shape, (slot, name)
+                    np.testing.assert_allclose(got.float().numpy(),
+                                               np.asarray(want.astype(jnp.float32)),
+                                               **TOL, err_msg=f"{slot}.{name}")
             layer += 1
 
     ref_logits, _ = _ref_forward(case.jcfg, case.jparams, case.tokens, _fe(case, "jax"))
@@ -224,12 +241,14 @@ def test_from_jax_params_round_trip(case):
             else:
                 check(np.asarray(v) if index is None else np.asarray(v)[index], prefix + k)
 
-    walk({k: v for k, v in tree.items() if k != "groups"}, "")
-    layer = 0
-    for group, (n_repeat, _) in zip(tree["groups"], case.jcfg.layer_plan()):
-        for r in range(n_repeat):
-            walk(group, f"layers.{layer}.", r)
-            layer += 1
+    walk({k: v for k, v in tree.items() if k not in convert.GROUPS}, "")
+    for key, name in convert.GROUPS.items():
+        layer = 0
+        for group in tree.get(key, ()):
+            n_repeat = np.asarray(jax.tree.leaves(group)[0]).shape[0]
+            for r in range(n_repeat):
+                walk(group, f"{name}.{layer}.", r)
+                layer += 1
     assert seen == len(state)
     names = set(state)
     cfg = case.jcfg
@@ -244,15 +263,6 @@ def test_serve_engine_needs_a_card_by_default():
         pytest.skip("a card is present: the default device resolves")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServeEngine(build_model(treg.get_config("qwen3-4b", smoke=True)))
-
-
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_archs_raise(arch):
-    cfg = treg.get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="item 4c"):
-        build_model(cfg)
-    with pytest.raises(NotImplementedError, match="item 4c"):
-        ttr.init_params(cfg, device="cpu")
 
 
 # ---------------------------------------------------------------------------
