@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path and its serving path on one CUDA
-card and check them.
+"""Drive the PyTorch port's main path, its serving paths and its LM
+training path on one CUDA card and check them.
 
 Run from the repository root, with no arguments:
 
@@ -110,10 +110,30 @@ Phases, one line each (any failure exits non-zero):
    the same parameters: forward and prefill logits within 5e-2 (the CPU
    tests' tolerance), served tokens under the token rule,
    ``bucket_matrix`` on the MoE archs' expert ids bit for bit.  The four
-   sorter kernels launch 0 times while serving.
+   sorter kernels launch 0 times while serving.  Phase 11 runs under
+   ``torch.inference_mode()``: serving records no autograd graph;
+12. train (after phase 11) — the LM training path,
+   ``repro_torch.train.train_loop.build_train_step`` (the launcher's
+   step: AdamW in place, per-layer remat, bf16 gradients) on the card:
+   (a) qwen3-4b at full width and depth trains 6 steps on one repeated
+   ``SyntheticLM`` batch of 2 x 1,024 tokens (the dense attention's
+   backward); (b) mixtral-8x7b at full width, 2 of its 32 layers, 4
+   steps on 1 x 4,608 tokens at the default capacity factor 1.25 (the
+   blockwise attention's backward, a ragged last block, the 4,096
+   window; ``moe_dropped_frac`` logged).  Each: every loss, norm and
+   parameter finite, ``grad_norm`` > 0, step 0's ``loss_total`` within
+   5e-2 of ``loss_fn`` under ``inference_mode``, the last loss below the
+   first; ms a step, tokens/s, peak memory and the device trace logged.
+   (c) The ten archs at smoke size on the card against the host with
+   the same parameters: bf16 gradients within 0.05 relative L2 a leaf,
+   one step's loss within 5e-2 and update within the reference's
+   microbatch check (dd < 0.35 d1), also at microbatches=2 on yi-9b;
+   ``launch.train.train`` on the card stopped and resumed from its
+   checkpoint replays the uninterrupted losses within 2e-2.  The four
+   sorter kernels launch 0 times while training (``launches_train``).
 
-It then prints one JSON line describing each kernel (the LM phase's
-launches under ``launches_lm``) (times from CUDA
+It then prints one JSON line describing each kernel (the LM phases'
+launches under ``launches_lm`` and ``launches_train``) (times from CUDA
 events, bounds from the bytes each call must move at 3.35 TB/s or its
 operations at 67 TFLOP/s), the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -198,6 +218,20 @@ LM_WHISPER_REQUESTS, LM_WHISPER_PROMPT, LM_WHISPER_NEW = 4, 16, 224
 LM_ARCHS = ("qwen3-4b", "qwen3-8b", "yi-9b", "qwen2-72b", "mixtral-8x7b",
             "moonshot-v1-16b-a3b", "internvl2-26b", "jamba-v0.1-52b", "xlstm-350m",
             "whisper-medium")
+# the training phase: (a) qwen3-4b at full size, 6 AdamW steps with
+# per-layer remat on one repeated batch of 2 x 1,024 tokens (below
+# CHUNK_THRESHOLD: the dense attention's backward); (b) mixtral-8x7b, 2 of
+# its 32 layers, 4 steps on 1 x 4,608 (the blockwise attention's backward,
+# a ragged last block, the 4,096 window) at the default capacity factor;
+# (c) the ten archs at smoke size, card against host.  The learning rate
+# is AdamWConfig's default, from the first step (warmup 1), decayed over
+# the run.  The per-leaf gradient tolerance is the CPU tests'
+# (tests/test_torch_train_grads.py); the update's is the reference's
+# microbatch check (dd < 0.35 d1), the resumed losses' its resume check.
+TRAIN_A_STEPS, TRAIN_A_BATCH, TRAIN_A_SEQ = 6, 2, 1024
+TRAIN_B_STEPS, TRAIN_B_SEQ = 4, 4608
+TRAIN_LR = 3e-4
+TRAIN_GRAD_TOL, TRAIN_GRAD_FLOOR, TRAIN_UPDATE_TOL, TRAIN_RESUME_RTOL = 0.05, 1e-3, 0.35, 2e-2
 
 
 def log(msg: str) -> None:
@@ -1813,14 +1847,16 @@ def phase_lm(torch, results: dict) -> None:
     # the reference's products accumulate in f32: no TF32, no bf16 split-K
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    lm_launches = {key: fn(torch, np) for key, fn in (
-        ("a", lm_a), ("b", lm_b), ("d", lm_d), ("e", lm_e), ("f", lm_f))}
+    # serving records no autograd graph
+    with torch.inference_mode():
+        lm_launches = {key: fn(torch, np) for key, fn in (
+            ("a", lm_a), ("b", lm_b), ("d", lm_d), ("e", lm_e), ("f", lm_f))}
 
-    # (c) every arch at smoke size, card against host
-    t1 = time.perf_counter()
-    for arch in LM_ARCHS:
-        lm_cuda_vs_cpu(torch, np, arch)
-    log(f"lm: (c) {time.perf_counter() - t1:.1f} s")
+        # (c) every arch at smoke size, card against host
+        t1 = time.perf_counter()
+        for arch in LM_ARCHS:
+            lm_cuda_vs_cpu(torch, np, arch)
+        log(f"lm: (c) {time.perf_counter() - t1:.1f} s")
     for key, name in (("encode", "encode_keys"), ("rmi_bucket", "rmi_bucket"),
                       ("sort_rows", "sort_rows"),
                       ("histogram", "bucket_histogram")):
@@ -1829,6 +1865,204 @@ def phase_lm(torch, results: dict) -> None:
         }
     log(f"lm: launches of the four sorter kernels while serving {lm_launches}")
     log(f"lm: phase {time.perf_counter() - t0:.1f} s")
+
+
+def lm_train(torch, np, cfg, params, tokens, steps: int, what: str) -> dict:
+    """``steps`` train steps of ``train_loop.build_train_step`` (the
+    launcher's step: AdamW, per-layer remat, bf16 gradients) on one
+    repeated batch, under a device trace.  Checks: every loss, norm and
+    parameter finite; ``grad_norm`` > 0; the first step's ``loss_total``
+    within ``LM_TOL`` of ``loss_fn`` under ``inference_mode``; the last
+    loss below the first; no sorter kernel launched.  Logs ms a step,
+    tokens/s, peak memory and the device trace."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+    from repro_torch.train import optimizer as opt_lib, train_loop
+
+    model = build_model(cfg)
+    model.trainable(params)
+    batch = {"tokens": torch.as_tensor(tokens, device="cuda")}
+    with torch.inference_mode():
+        want = float(model.loss_fn(params, batch)[0])
+    opt_state = opt_lib.init_state(params)
+    step = train_loop.build_train_step(model, opt_lib.AdamWConfig(
+        lr=TRAIN_LR, warmup_steps=1, total_steps=steps))
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    prof = start_device_trace(torch)
+    t0 = time.perf_counter()
+    losses, norms, drops, ms = [], [], [], []
+    for _ in range(steps):
+        t1 = time.perf_counter()
+        _, _, m = step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(m["loss_total"]))
+        norms.append(float(m["grad_norm"]))
+        drops.append(float(m["moe_dropped_frac"]))
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    log_device_time(prof, f"train: {what}", wall)
+    finite = all(bool(torch.isfinite(p).all()) for p in params.parameters())
+    require(finite and all(np.isfinite(losses + norms)),
+            f"{what}: a loss, norm or parameter is not finite ({losses}, {norms})")
+    require(norms[0] > 0, f"{what}: grad_norm {norms[0]}")
+    require(abs(losses[0] - want) <= LM_TOL,
+            f"{what}: step 0 loss_total {losses[0]} against loss_fn's {want}")
+    require(losses[-1] < losses[0], f"{what}: the loss did not fall: {losses}")
+    require(not any(launches.values()),
+            f"{what}: a sorter kernel launched while training {launches}")
+    n_tok = int(batch["tokens"].numel())
+    steady = statistics.median(ms[1:])
+    n_moe = sum(k == "moe" for period in params.periods for k in period)
+    log(f"train: {what} {steps} steps on {tuple(batch['tokens'].shape)} tokens in "
+        f"{wall:.2f} s: step 0 {ms[0]:.1f} ms, then median {steady:.1f} ms a step "
+        f"({[round(x, 1) for x in ms]}), {n_tok / steady * 1e3:.1f} tokens/s; peak "
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; sorter kernel "
+        f"launches {launches}")
+    log(f"train: {what} loss_total {[round(x, 4) for x in losses]} (loss_fn under "
+        f"inference_mode {want:.4f}, step 0 differs by {abs(losses[0] - want):.2e}); "
+        f"grad_norm {[round(x, 3) for x in norms]}"
+        + (f"; moe_dropped_frac a MoE layer {[round(x / n_moe, 4) for x in drops]}"
+           if n_moe else ""))
+    del opt_state, step
+    return launches
+
+
+def train_a(torch, np) -> dict:
+    """(a) qwen3-4b, full width and depth."""
+    from repro_torch.configs import registry
+
+    cfg = registry.get_config("qwen3-4b")
+    params, t1 = lm_init(torch, cfg, "(a) train")
+    tokens = _synthetic(cfg, TRAIN_A_SEQ, TRAIN_A_BATCH)
+    launches = lm_train(torch, np, cfg, params, tokens, TRAIN_A_STEPS, "(a) qwen3-4b")
+    del params
+    lm_done(torch, "(a) train", t1)
+    return launches
+
+
+def train_b(torch, np) -> dict:
+    """(b) mixtral-8x7b, full width, 2 of its 32 layers, default capacity."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+
+    full = registry.get_config("mixtral-8x7b")
+    cfg = dataclasses.replace(full, n_layers=LM_MIXTRAL_LAYERS)
+    params, t1 = lm_init(torch, cfg, "(b) train", f" of {full.n_layers}")
+    log(f"lm: (b) train: window {cfg.window}, capacity factor "
+        f"{cfg.moe.capacity_factor}")
+    tokens = _synthetic(cfg, TRAIN_B_SEQ, 1)
+    launches = lm_train(torch, np, cfg, params, tokens, TRAIN_B_STEPS, "(b) mixtral")
+    del params
+    lm_done(torch, "(b) train", t1)
+    return launches
+
+
+def _train_batch(torch, np, cfg, dev) -> dict:
+    """(c)'s batch: 4 x 16 ``SyntheticLM`` tokens, with seeded patches or
+    frames where the arch takes them."""
+    batch = {"tokens": _synthetic(cfg, 16, 4)}
+    if cfg.frontend != "none":
+        batch["frontend_embeds"] = np.random.default_rng(0).standard_normal(
+            (4, cfg.n_frontend_tokens, cfg.d_frontend)).astype(np.float32)
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+
+def train_cuda_vs_cpu(torch, np, arch: str, microbatches: int = 1) -> None:
+    """(c) One smoke arch on the card and on the host with the same
+    parameters: ``grads_of``'s bf16 gradients within ``TRAIN_GRAD_TOL``
+    leaf by leaf (relative L2, floored at ``TRAIN_GRAD_FLOOR`` of the
+    whole gradient), then one ``build_train_step`` step: loss within
+    ``LM_TOL``, update within ``dd < TRAIN_UPDATE_TOL * d1``."""
+    import copy
+
+    from repro_torch.configs import registry
+    from repro_torch.models.api import build_model
+    from repro_torch.train import optimizer as opt_lib, train_loop
+
+    cfg = registry.get_config(arch, smoke=True)
+    model = build_model(cfg)
+    cpu = model.trainable(model.init_params(seed=0, device="cpu"))
+    gpu = copy.deepcopy(cpu).to("cuda")
+    host = _train_batch(torch, np, cfg, "cpu")
+    card = _train_batch(torch, np, cfg, "cuda")
+    _, _, gc = train_loop.grads_of(model, cpu, host, microbatches=microbatches)
+    _, _, gg = train_loop.grads_of(model, gpu, card, microbatches=microbatches)
+    require(all(bool(torch.isfinite(g).all()) for g in gg.values()),
+            f"{arch}: a gradient on the card is not finite")
+    total = sum(float(g.float().square().sum()) for g in gc.values()) ** 0.5
+    errs = {n: float((gg[n].float().cpu() - g.float()).norm())
+            / max(float(g.float().norm()), TRAIN_GRAD_FLOOR * total) for n, g in gc.items()}
+    leaf, worst = max(errs.items(), key=lambda kv: kv[1])
+    require(worst <= TRAIN_GRAD_TOL, f"{arch}: gradient {leaf} on the card differs "
+            f"from the host's by {worst} relative L2")
+    before = {n: p.detach().clone() for n, p in cpu.named_parameters()}
+    step = train_loop.build_train_step(model, opt_lib.AdamWConfig(lr=1e-3, warmup_steps=1),
+                                       microbatches=microbatches)
+    _, _, mc = step(cpu, opt_lib.init_state(cpu), host)
+    _, _, mg = step(gpu, opt_lib.init_state(gpu), card)
+    dl = abs(float(mg["loss_total"]) - float(mc["loss_total"]))
+    require(dl <= LM_TOL, f"{arch}: step loss on the card differs by {dl}")
+    d1 = sum(float((p.detach() - before[n]).abs().sum()) for n, p in cpu.named_parameters())
+    dd = sum(float((g.detach().cpu() - c.detach()).abs().sum())
+             for g, c in zip(gpu.parameters(), cpu.parameters()))
+    require(dd < TRAIN_UPDATE_TOL * d1, f"{arch}: update on the card differs from the "
+            f"host's: dd {dd} >= {TRAIN_UPDATE_TOL} * d1 {d1}")
+    log(f"train: (c) {arch}{f' microbatches={microbatches}' if microbatches > 1 else ''}: "
+        f"card vs host loss |diff| {dl:.2e}, worst gradient leaf {leaf} {worst:.4f} "
+        f"relative L2, update dd/d1 {dd / d1:.4f}")
+
+
+def train_resume_on_card(np, tmp: str) -> None:
+    """(c) ``launch.train.train`` on the card (its default device), stopped
+    at step 4 with a checkpoint and resumed, against the uninterrupted
+    run (the reference's ``test_train_resume_equivalence``)."""
+    from repro_torch.launch.train import train
+
+    kw = dict(smoke=True, steps=8, batch=4, seq=16, mesh_shape=(1,), log_every=100)
+    d = os.path.join(tmp, "ck")
+    full = train("qwen3-4b", **kw)
+    train("qwen3-4b", **{**kw, "steps": 4}, ckpt_dir=d, ckpt_every=4)
+    resumed = train("qwen3-4b", **kw, ckpt_dir=d, ckpt_every=100)
+    rel = float(np.max(np.abs(np.asarray(resumed) / np.asarray(full[4:]) - 1)))
+    require(rel <= TRAIN_RESUME_RTOL, f"resumed losses {resumed} against {full[4:]}")
+    log(f"train: (c) launch.train on the card, resumed at step 4 from a checkpoint: "
+        f"losses {[round(x, 4) for x in resumed]} against the uninterrupted "
+        f"{[round(x, 4) for x in full[4:]]}, largest relative difference {rel:.2e}")
+
+
+def phase_train(torch, results: dict) -> None:
+    """12. The LM training path (see the module docstring)."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    train_launches = {key: fn(torch, np) for key, fn in (("a", train_a), ("b", train_b))}
+
+    t1 = time.perf_counter()
+    ops.reset_launches()
+    for arch in LM_ARCHS:
+        train_cuda_vs_cpu(torch, np, arch)
+    train_cuda_vs_cpu(torch, np, "yi-9b", microbatches=2)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        train_resume_on_card(np, tmp)
+    train_launches["c"] = launch_counts()
+    require(not any(train_launches["c"].values()),
+            f"(c): a sorter kernel launched while training {train_launches['c']}")
+    log(f"train: (c) {time.perf_counter() - t1:.1f} s")
+    for key, name in (("encode", "encode_keys"), ("rmi_bucket", "rmi_bucket"),
+                      ("sort_rows", "sort_rows"),
+                      ("histogram", "bucket_histogram")):
+        results[key]["launches_train"] = {
+            run: by_name[name] for run, by_name in train_launches.items()
+        }
+    log(f"train: launches of the four sorter kernels while training {train_launches}")
+    log(f"train: phase {time.perf_counter() - t0:.1f} s")
 
 
 def checksum_file(validate, gensort, path: str) -> int:
@@ -2021,13 +2255,14 @@ def main() -> int:
         phase_ops_lines(torch, tmp)
         phase_ops_fixed(torch, tmp)
 
-    # 11. the LM serving path
+    # 11. the LM serving path; 12. the LM training path
     phase_lm(torch, results)
+    phase_train(torch, results)
     log(f"smoke: every phase ok in {time.perf_counter() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches",
-            "launches_distributed", "launches_lm", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "launches_distributed", "launches_lm", "launches_train", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: results[n][k] for k in keys}
                for n in ("encode", "rmi_bucket", "sort_rows", "histogram")]
     print(json.dumps({"kernels": kernels}))

@@ -2,7 +2,8 @@
 """Chosen paths of ``chip_smoke.py``'s LM phase (phase 11), alone, on one
 CUDA card: ``a`` qwen3-4b, ``b`` 2-layer mixtral, ``d`` one period of
 jamba, ``e`` xlstm-350m, ``f`` whisper-medium, ``c`` the ten archs at
-smoke size card against host.
+smoke size card against host; each under ``torch.inference_mode()``, as
+phase 11 serves.  ``train``: the LM training phase (phase 12) whole.
 
 - ``--measure``: the served-vs-forward tolerances of the paths run are
   lifted, so that ``lm_check`` logs the drift and judges nothing; how
@@ -22,6 +23,7 @@ smoke size card against host.
 Run from the repository root:
 
     python3 experiments/lm_paths.py b d e f [--measure] [--sums] [--parent DIR]
+    python3 experiments/lm_paths.py train
 """
 
 import importlib.util
@@ -99,13 +101,17 @@ def main() -> int:
         attention._sdpa_chunked = chunked
         for key in paths:
             t = time.perf_counter()
-            if key == "c":
-                for arch in cs.LM_ARCHS:
-                    cs.lm_cuda_vs_cpu(torch, np, arch)
-            else:
-                getattr(cs, f"lm_{key}")(torch, np)
+            with torch.inference_mode():
+                if key == "c":
+                    for arch in cs.LM_ARCHS:
+                        cs.lm_cuda_vs_cpu(torch, np, arch)
+                else:
+                    getattr(cs, f"lm_{key}")(torch, np)
             cs.log(f"lm_paths: ({key}) with {name}'s chunked attention "
                    f"{time.perf_counter() - t:.1f} s")
+    if "train" in args:
+        cs.phase_train(torch, {k: {} for k in ("encode", "rmi_bucket", "sort_rows",
+                                               "histogram")})
     cs.log(f"lm_paths: {time.perf_counter() - t0:.1f} s")
     return 0
 

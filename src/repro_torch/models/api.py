@@ -1,5 +1,6 @@
 """Public model API (port of ``src/repro/models/api.py``): ``build_model(cfg)``
-returns a ``Model`` facade with init / forward / loss / prefill / decode,
+returns a ``Model`` facade with init / forward / loss / prefill / decode
+(and ``trainable``, which marks parameters for the trainer),
 over ``models/transformer.py`` for decoder-only models and
 ``models/encdec.py`` for encoder-decoder ones (whose batches carry the
 frame embeddings as ``frontend_embeds``).
@@ -38,14 +39,24 @@ class Model:
         params.load_state_dict(state_dict)
         return params
 
+    def trainable(self, params: nn.Module) -> nn.Module:
+        """Mark every parameter of ``params`` trained (``requires_grad``),
+        in place: ``loss_fn`` then records the graph its backward pass
+        needs.  Parameters are built frozen, so serving records none."""
+        return params.requires_grad_(True)
+
     def forward(self, params, batch: dict):
         """Full-sequence f32 logits and the MoE aux metrics."""
         return self._impl.forward(
             self.cfg, params, batch["tokens"], batch.get("frontend_embeds")
         )
 
-    def loss_fn(self, params, batch: dict):
-        return self._impl.loss_fn(self.cfg, params, batch)
+    def loss_fn(self, params, batch: dict, *, remat: bool = True):
+        """``(loss, metrics)``: next-token cross-entropy (+ the MoE aux
+        terms), differentiable in the parameters that ``trainable``
+        marked; ``remat`` recomputes each layer in the backward pass (the
+        reference's per-period ``jax.checkpoint``)."""
+        return self._impl.loss_fn(self.cfg, params, batch, remat=remat)
 
     def prefill(self, params, batch: dict, max_seq: int | None = None):
         return self._impl.prefill(

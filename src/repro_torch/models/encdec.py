@@ -29,7 +29,8 @@ def enc_plan(cfg):
 
 
 class EncDec(nn.Module):
-    """The port's enc-dec parameters: f32, frozen, one module a layer.
+    """The port's enc-dec parameters: f32, frozen until
+    ``Model.trainable``, one module a layer.
     With ``generator=None`` the weights are left empty, to be filled by
     ``load_state_dict`` (e.g. from ``convert.from_jax_params``)."""
 
@@ -59,16 +60,22 @@ def init_params(cfg, seed: int = 0, device="cuda") -> EncDec:
     return EncDec(cfg, gen, dev)
 
 
+def _enc_layer(cfg, layer, period, x, positions):
+    for i, kind in enumerate(period):
+        x, _, _ = transformer.apply_sublayer_seq(
+            kind, layer[_slot(i, kind)], cfg, x, positions
+        )
+    return x
+
+
 def encode(cfg, params: EncDec, frames) -> torch.Tensor:
-    """frames (B, T, D) stub embeddings -> encoder states (B, T, D)."""
+    """frames (B, T, D) stub embeddings -> encoder states (B, T, D); each
+    layer recomputed in the backward pass, as the reference always does."""
     x = frames.to(layers.COMPUTE_DTYPE)
     x = x + layers.sinusoidal_positions(x.shape[1], cfg.d_model).to(x.device, x.dtype)
     positions = transformer._positions(x.shape[1], x.device)
     for layer, period in zip(params.enc_layers, params.enc_periods):
-        for i, kind in enumerate(period):
-            x, _, _ = transformer.apply_sublayer_seq(
-                kind, layer[_slot(i, kind)], cfg, x, positions
-            )
+        x = transformer.run_layer(True, _enc_layer, cfg, layer, period, x, positions)
     return layers.rms_norm(x, params.enc_norm, cfg.norm_eps)
 
 
@@ -81,31 +88,40 @@ def cross_caches(cfg, params: EncDec, enc_out) -> list[dict]:
     ]
 
 
-def decoder_forward(cfg, params: EncDec, tokens, cross: list[dict]) -> torch.Tensor:
-    """Teacher-forced decoder: f32 logits (B, S, V)."""
+def _dec_layer(cfg, layer, period, lcross, x, positions):
+    for i, kind in enumerate(period):
+        slot = _slot(i, kind)
+        if kind == "cross":
+            x = attention.attend_cross(layer[slot], cfg, x, lcross[slot])
+        else:
+            x, _, _ = transformer.apply_sublayer_seq(kind, layer[slot], cfg, x, positions)
+    return x
+
+
+def decoder_forward(cfg, params: EncDec, tokens, cross: list[dict], *,
+                    remat: bool = True) -> torch.Tensor:
+    """Teacher-forced decoder: f32 logits (B, S, V); ``remat`` recomputes
+    each layer in the backward pass."""
     x = transformer.embed_inputs(cfg, params, tokens)
     positions = transformer._positions(x.shape[1], x.device)
     for layer, period, lcross in zip(params.layers, params.periods, cross):
-        for i, kind in enumerate(period):
-            slot = _slot(i, kind)
-            if kind == "cross":
-                x = attention.attend_cross(layer[slot], cfg, x, lcross[slot])
-            else:
-                x, _, _ = transformer.apply_sublayer_seq(kind, layer[slot], cfg, x, positions)
+        x = transformer.run_layer(remat, _dec_layer, cfg, layer, period, lcross, x,
+                                  positions)
     return transformer.lm_logits(cfg, params, x)
 
 
-def forward(cfg, params: EncDec, tokens, frames):
+def forward(cfg, params: EncDec, tokens, frames, *, remat: bool = True):
     """Full-sequence logits through the encoder and the decoder, and no
     aux metrics (the counterpart of ``transformer.forward``)."""
     enc = encode(cfg, params, frames)
-    return decoder_forward(cfg, params, tokens, cross_caches(cfg, params, enc)), {}
+    return decoder_forward(cfg, params, tokens, cross_caches(cfg, params, enc),
+                           remat=remat), {}
 
 
-def loss_fn(cfg, params: EncDec, batch: dict):
-    """Next-token cross-entropy, value only."""
+def loss_fn(cfg, params: EncDec, batch: dict, *, remat: bool = True):
+    """Next-token cross-entropy, differentiable in the parameters."""
     tokens = batch["tokens"]
-    logits, _ = forward(cfg, params, tokens, batch["frontend_embeds"])
+    logits, _ = forward(cfg, params, tokens, batch["frontend_embeds"], remat=remat)
     lp = F.log_softmax(logits[:, :-1].float(), dim=-1)
     tgt = tokens[:, 1:].to(torch.int64)
     loss = -torch.gather(lp, -1, tgt[..., None])[..., 0].mean()

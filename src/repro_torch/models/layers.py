@@ -43,7 +43,8 @@ def param(
     scale: float = 1.0,
     fill: float | None = None,
 ) -> nn.Parameter:
-    """A frozen f32 parameter: ``fill`` everywhere (norm weights, biases),
+    """An f32 parameter, frozen until a trainer marks it trained
+    (``Model.trainable``): ``fill`` everywhere (norm weights, biases),
     else He-initialised from ``generator``, else left empty (to be loaded,
     e.g. from ``convert.from_jax_params``)."""
     if fill is not None:

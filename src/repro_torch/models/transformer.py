@@ -7,6 +7,11 @@ group's parameters on a leading axis and ``lax.scan``s over it; the port
 keeps one module per layer (``Transformer.layers[i]``, a ``ModuleDict``
 of the period's sublayers under the reference's slot names) and loops.
 
+The training path (``forward``/``loss_fn`` with ``remat=True``, the
+reference's ``jax.checkpoint`` around each period) runs each layer under
+``torch.utils.checkpoint``: autograd keeps a layer's input and recomputes
+its activations in the backward pass.
+
 Sublayer kinds: ``attn``, ``attn_swa``, ``attn_bidir``, ``cross``,
 ``mlp``, ``moe``, ``mamba``, ``mlstm`` and ``slstm``; the ``vit``
 frontend stub.  Encoder-decoder models assemble these sublayers in
@@ -28,6 +33,7 @@ import dataclasses
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.executor import resolve_device
 from repro_torch.models import attention, layers, mamba, moe, xlstm
@@ -85,7 +91,8 @@ class Frontend(nn.Module):
 
 
 class Transformer(nn.Module):
-    """The port's parameters: f32, frozen, one module per layer.
+    """The port's parameters: f32, frozen until ``Model.trainable``, one
+    module per layer.
 
     With ``generator=None`` the weights are left empty, to be filled by
     ``load_state_dict`` (e.g. from ``convert.from_jax_params``)."""
@@ -241,25 +248,47 @@ def _positions(s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device)[None, :]
 
 
-def forward(cfg, params: Transformer, tokens, frontend_embeds=None):
+def run_layer(remat: bool, fn, *args):
+    """``fn(*args)``; with ``remat``, while autograd records, under
+    ``torch.utils.checkpoint`` (non-reentrant): only ``args`` are kept,
+    and ``fn`` runs again in the backward pass."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _layer_seq(cfg, layer, period, x, positions):
+    """One layer's sublayers in order -> (x, each MoE sublayer's aux)."""
+    auxs = []
+    for i, kind in enumerate(period):
+        x, _, aux = apply_sublayer_seq(kind, layer[_slot(i, kind)], cfg, x, positions)
+        if aux:
+            auxs.append(aux)
+    return x, auxs
+
+
+def forward(cfg, params: Transformer, tokens, frontend_embeds=None, *,
+            remat: bool = True):
     """Full-sequence logits (f32) and the MoE aux metrics summed over
-    layers."""
+    layers; ``remat`` recomputes each layer in the backward pass."""
     x = embed_inputs(cfg, params, tokens, frontend_embeds)
     positions = _positions(x.shape[1], x.device)
     aux_total = {"moe_lb_loss": 0.0, "moe_z_loss": 0.0, "moe_dropped_frac": 0.0}
     for layer, period in zip(params.layers, params.periods):
-        for i, kind in enumerate(period):
-            x, _, aux = apply_sublayer_seq(kind, layer[_slot(i, kind)], cfg, x, positions)
+        x, auxs = run_layer(remat, _layer_seq, cfg, layer, period, x, positions)
+        for aux in auxs:
             for k, val in aux.items():
                 aux_total[k] = aux_total[k] + val
     return lm_logits(cfg, params, x), aux_total
 
 
-def loss_fn(cfg, params: Transformer, batch: dict):
-    """Next-token cross-entropy (+ MoE aux), value only.  batch: tokens
-    (B, S) [+ frontend_embeds]; frontend positions are excluded."""
+def loss_fn(cfg, params: Transformer, batch: dict, *, remat: bool = True):
+    """Next-token cross-entropy (+ MoE aux), differentiable in the
+    parameters.  batch: tokens (B, S) [+ frontend_embeds]; frontend
+    positions are excluded."""
     tokens = batch["tokens"]
-    logits, aux = forward(cfg, params, tokens, batch.get("frontend_embeds"))
+    logits, aux = forward(cfg, params, tokens, batch.get("frontend_embeds"),
+                          remat=remat)
     n_front = logits.shape[1] - tokens.shape[1]
     logits_text = logits[:, n_front:, :]
     tgt = tokens[:, 1:].to(torch.int64)

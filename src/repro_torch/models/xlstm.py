@@ -178,7 +178,9 @@ def _slstm_cell(p: SLSTM, cfg, xt, state: dict) -> dict:
 
     def gate(g):
         wx = (xt @ getattr(p, f"w{g}").to(xt.dtype)).reshape(b, nh, hd).float()
-        rh = torch.einsum("bhd,hde->bhe", h_, getattr(p, f"r{g}"))
+        # the f32 state times the weight, promoted as ``jnp.einsum`` does
+        # (the microbatched train step hands bf16 weights)
+        rh = torch.einsum("bhd,hde->bhe", h_, getattr(p, f"r{g}").to(h_.dtype))
         return wx + rh + getattr(p, f"b{g}").reshape(nh, hd)[None]
 
     i_t, f_t, z_t, o_t = (gate(g) for g in GATES)

@@ -4,6 +4,9 @@ facade (``Model.prefill``, ``Model.decode_logits``), for decoder-only
 and encoder-decoder models alike; ``**extras`` (``frontend_embeds``:
 image patches, audio frames) go to the prefill.
 
+``generate`` runs under ``torch.inference_mode()``: it records no
+autograd graph, also for parameters a trainer marked trained.
+
 The cache (``models.transformer.Cache``) is updated in place, the
 counterpart of the reference's ``donate_argnums``: attention K/V tensors
 ``(B, S_max, K, hd)`` written a token at a time, recurrent states
@@ -49,6 +52,7 @@ class ServeEngine:
         )
         self.stats = GenerateStats()
 
+    @torch.inference_mode()
     def generate(
         self, prompts: np.ndarray, max_new_tokens: int = 16, **extras
     ) -> np.ndarray:

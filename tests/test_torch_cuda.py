@@ -8,7 +8,11 @@ their plain versions, a cached model reused on the card, a CUDA
 and on gloo; and the LM serving path at smoke size (all ten archs'
 forward, prefill and decode on the card against the host,
 ``bucket_matrix`` on their expert ids, ``ServeEngine``'s default device,
-the blockwise attention).
+the blockwise attention); and the LM training path at smoke size (all
+ten archs' bf16 gradients and one train step on the card against the
+host, the microbatched step, a checkpoint from the card to the host and
+back, the launcher's resume on the card, serving trained parameters
+without a graph, the blockwise attention's backward pass).
 
 Every test needs a CUDA device (a CUDA kernel has no CPU mode) and skips
 without one; the check happens when the test runs.  This file imports
@@ -766,3 +770,156 @@ def test_sdpa_chunked_on_card(lm_card, window):
     dense = attention._sdpa(q, k, v, mask[None], 2)
     out = attention._sdpa_chunked(q, k, v, 2, window=window)
     torch.testing.assert_close(out, dense, atol=3e-5, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# The LM training path on the card (chip_smoke.py phase 12 (c), smoke size)
+# ---------------------------------------------------------------------------
+
+# tests/test_torch_train_grads.py's per-leaf gradient tolerance
+GRAD_TOL, GRAD_FLOOR = 0.05, 1e-3
+
+
+def _train_batch(cfg, dev, b=4, s=16):
+    from repro_torch.data.pipeline import PipelineConfig, SyntheticLM
+
+    batch = SyntheticLM(PipelineConfig(cfg.vocab_raw, s, b)).batch_at(0)
+    if cfg.frontend != "none":
+        batch["frontend_embeds"] = np.random.default_rng(0).standard_normal(
+            (b, cfg.n_frontend_tokens, cfg.d_frontend)).astype(np.float32)
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+
+def _grad_errors(got: dict, want: dict) -> dict:
+    """Each leaf's relative L2 error, with tests/test_torch_train_grads.py's
+    floor."""
+    total = sum(float(w.float().square().sum()) for w in want.values()) ** 0.5
+    return {n: float((got[n].float().cpu() - w.float()).norm())
+            / max(float(w.float().norm()), GRAD_FLOOR * total) for n, w in want.items()}
+
+
+@pytest.mark.parametrize("arch, microbatches", [(a, 1) for a in LM_ARCHS]
+                         + [("yi-9b", 2)])
+def test_train_step_on_card_matches_host(lm_card, arch, microbatches):
+    """The same parameters on the card and the host: ``grads_of``'s bf16
+    gradients within ``GRAD_TOL`` leaf by leaf, and one
+    ``build_train_step`` step's loss within ``LM_TOL`` and update within
+    the reference's ``dd < 0.35 * d1``."""
+    import copy
+
+    from repro_torch.configs import registry
+    from repro_torch.models.api import build_model
+    from repro_torch.train import optimizer as opt_lib, train_loop
+
+    cfg = registry.get_config(arch, smoke=True)
+    model = build_model(cfg)
+    cpu = model.trainable(model.init_params(seed=0, device="cpu"))
+    gpu = copy.deepcopy(cpu).to(lm_card)
+    host, card = _train_batch(cfg, "cpu"), _train_batch(cfg, lm_card)
+    lc, _, gc = train_loop.grads_of(model, cpu, host, microbatches=microbatches)
+    lg, _, gg = train_loop.grads_of(model, gpu, card, microbatches=microbatches)
+    assert all(g.is_cuda and g.dtype == torch.bfloat16 for g in gg.values())
+    assert all(bool(torch.isfinite(g).all()) for g in gg.values())
+    errs = _grad_errors(gg, gc)
+    assert max(errs.values()) <= GRAD_TOL, max(errs.items(), key=lambda kv: kv[1])
+    before = {n: p.detach().clone() for n, p in cpu.named_parameters()}
+    step = train_loop.build_train_step(model, opt_lib.AdamWConfig(lr=1e-3, warmup_steps=1),
+                                       microbatches=microbatches)
+    _, _, mc = step(cpu, opt_lib.init_state(cpu), host)
+    _, sg, mg = step(gpu, opt_lib.init_state(gpu), card)
+    assert abs(float(mg["loss_total"]) - float(mc["loss_total"])) <= LM_TOL
+    assert int(sg["step"]) == 1 and sg["m"]["embed"].is_cuda
+    d1 = sum(float((p.detach() - before[n]).abs().sum()) for n, p in cpu.named_parameters())
+    dd = sum(float((p.detach().cpu() - c.detach()).abs().sum())
+             for p, c in zip(gpu.parameters(), cpu.parameters()))
+    assert dd < 0.35 * d1, (dd, d1)
+
+
+def test_checkpoint_card_to_host_and_back(lm_card, tmp_path):
+    from repro_torch.train import checkpoint
+
+    tree = {"w": torch.randn(5, 3, device=lm_card),
+            "b": torch.randn(4, device=lm_card).to(torch.bfloat16),
+            "step": torch.tensor(3, dtype=torch.int32, device=lm_card)}
+    d = str(tmp_path / "ck")
+    checkpoint.save(d, 3, tree)
+    host = checkpoint.restore(d, 3, tree, device="cpu")
+    for k, v in tree.items():
+        assert host[k].device.type == "cpu" and torch.equal(host[k], v.cpu()), k
+    checkpoint.save(d, 4, host)
+    back = checkpoint.restore(d, 4, host, device=lm_card)
+    for k, v in tree.items():
+        assert back[k].is_cuda and torch.equal(back[k], v), k
+
+
+def test_train_launcher_resumes_on_card(lm_card, tmp_path):
+    """``launch.train.train`` on the card (its default device): a run
+    stopped and resumed from its checkpoint replays the uninterrupted
+    losses within the reference's ``rtol=2e-2``."""
+    from repro_torch.launch.train import train
+
+    kw = dict(smoke=True, steps=8, batch=4, seq=16, mesh_shape=(1,), log_every=100)
+    d = str(tmp_path / "ck")
+    full = train("qwen3-4b", **kw)
+    train("qwen3-4b", **{**kw, "steps": 4}, ckpt_dir=d, ckpt_every=4)
+    resumed = train("qwen3-4b", **kw, ckpt_dir=d, ckpt_every=100)
+    np.testing.assert_allclose(resumed, full[4:], rtol=2e-2)
+    assert full[-1] < full[0]
+
+
+def test_serve_engine_records_no_graph_on_card(lm_card):
+    """Serving trained parameters on the card: every logit the engine
+    computes comes from ``inference_mode`` and carries no ``grad_fn``."""
+    from repro_torch.configs import registry
+    from repro_torch.models.api import build_model
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = registry.get_config("qwen3-4b", smoke=True)
+    model = build_model(cfg)
+    seen = []
+
+    class Recording:
+        def __getattr__(self, name):
+            return getattr(model, name)
+
+        def prefill(self, *a, **k):
+            out = model.prefill(*a, **k)
+            seen.append((torch.is_inference_mode_enabled(), out[0].grad_fn))
+            return out
+
+        def decode_logits(self, *a, **k):
+            out = model.decode_logits(*a, **k)
+            seen.append((torch.is_inference_mode_enabled(), out.grad_fn))
+            return out
+
+    params = model.trainable(model.init_params(seed=0, device=lm_card))
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_raw, (2, 8)).astype(np.int32)
+    ServeEngine(Recording(), params=params).generate(prompts, 4)
+    assert len(seen) == 4 and all(mode and fn is None for mode, fn in seen)
+
+
+@pytest.mark.parametrize("window", [0, 100, 4096])
+def test_sdpa_chunked_backward_on_card(lm_card, window):
+    """The blockwise attention's dq, dk, dv on the card against the dense
+    softmax's, for one cotangent (f32; ``atol=3e-5``)."""
+    from repro_torch.models import attention
+
+    rng = np.random.default_rng(0)
+    s = 4100  # a padded last query and kv block
+    q, k, v, w = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32) * sc)
+                  .to(lm_card) for sh, sc in (((1, s, 4, 16), 0.3), ((1, s, 2, 16), 0.3),
+                                              ((1, s, 2, 16), 1.0), ((1, s, 4, 16), 1.0)))
+    i = torch.arange(s, device=lm_card)[:, None]
+    j = torch.arange(s, device=lm_card)[None, :]
+    mask = (j <= i) & ((j > i - window) if window else True)
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        fn(*leaves).backward(w)
+        return [t.grad for t in leaves]
+
+    chunked = grads(lambda q, k, v: attention._sdpa_chunked(q, k, v, 2, window=window))
+    dense = grads(lambda q, k, v: attention._sdpa(q, k, v, mask[None], 2))
+    for c, d in zip(chunked, dense):
+        assert bool(torch.isfinite(c).all())
+        torch.testing.assert_close(c, d, atol=3e-5, rtol=0)
