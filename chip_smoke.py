@@ -131,9 +131,32 @@ Phases, one line each (any failure exits non-zero):
    ``launch.train.train`` on the card stopped and resumed from its
    checkpoint replays the uninterrupted losses within 2e-2.  The four
    sorter kernels launch 0 times while training (``launches_train``).
+13. mesh (after phase 12) — the sharded LM step (``sharding/spmd.py``:
+   DTensor parameters, optimizer state and batch laid out by
+   ``sharding.rules``): (a) qwen3-4b at full width and depth
+   (4,411,424,256 parameters), 4 AdamW steps on one repeated
+   ``SyntheticLM`` batch of 2 x 1,024 tokens on a (1, 1) ("data",
+   "model") DTensor mesh over NCCL, spawned by the script
+   (``chip_smoke.mesh_rank``), held against the plain single-rank step
+   on the card from the same parameters: every ``loss_total`` within
+   1e-2, step 0's update within the reference's microbatch check (dd <
+   0.35 d1) on four leaves; ms a step, tokens/s, peak memory and one
+   step's collectives by kind logged.  (Several gloo ranks sharing the
+   card cannot carry DTensor — its functional all-gather ends the
+   process, ``experiments/gloo_cuda_probe.py`` — and NCCL puts no two
+   ranks on one card; the CPU tests hold the multi-rank step.)  (b)
+   ``launch.train.train`` at smoke size on that mesh, stopped at step 2
+   with a checkpoint, resumed on it and on one rank (no process group):
+   the uninterrupted losses within 2e-2.  (c) ``launch.dryrun`` of
+   qwen3-4b ``train_4k`` and mixtral-8x7b ``decode_32k`` on the 16 x 16
+   fake mesh, each in a subprocess beside (a) and (b), its record and
+   seconds logged.  (d) The four sorter kernels launch 0 times in this
+   phase: ``launches_mesh`` sums the counts each rank reads over its own
+   (a) and (b); this process's (the plain reference step, the one-rank
+   resume) must be 0 too.
 
 It then prints one JSON line describing each kernel (the LM phases'
-launches under ``launches_lm`` and ``launches_train``) (times from CUDA
+launches under ``launches_lm``, ``launches_train`` and ``launches_mesh``) (times from CUDA
 events, bounds from the bytes each call must move at 3.35 TB/s or its
 operations at 67 TFLOP/s), the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -146,6 +169,7 @@ import contextlib
 import hashlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2065,6 +2089,249 @@ def phase_train(torch, results: dict) -> None:
     log(f"train: phase {time.perf_counter() - t0:.1f} s")
 
 
+# 13. The sharded LM step.  (a) qwen3-4b at full width, MESH_LAYERS of its
+# 36 layers, on a MESH_SHAPE ("data", "model") mesh of MESH_BACKEND ranks,
+# MESH_STEPS AdamW steps on one repeated batch of MESH_BATCH x MESH_SEQ
+# tokens, against the plain single-rank step from the same parameters:
+# every loss_total within MESH_LOSS_TOL, step 0's update within the
+# reference's microbatch check (dd < 0.35 d1) on MESH_LEAVES.  (b)
+# launch.train at smoke size on the same ranks, stopped at step 2, resumed
+# on (world, 1) and on one rank: the uninterrupted losses within 2e-2.
+# (c) two dry-run cells in subprocesses, beside (a) and (b).
+# Several gloo ranks sharing the card cannot carry DTensor: plain gloo
+# collectives on CUDA tensors run, but DTensor's first redistribution on a
+# 2 x 2 mesh ends the process with SIGSEGV (experiments/gloo_cuda_probe.py),
+# and NCCL puts no two ranks on one card.  So the sharded step runs at
+# world size 1 on NCCL, on a (1, 1) mesh over the full 36 layers (the
+# DTensor path at full size), on phase 12's batch of 2 x 1,024 (its 65 GB
+# peak leaves no room for 4 x 1,024 beside 61.8 GB of state); the tests
+# hold the multi-rank step on gloo CPU ranks.
+MESH_SHAPE, MESH_LAYERS, MESH_STEPS, MESH_BATCH, MESH_SEQ = (1, 1), 36, 4, 2, 1024
+MESH_BACKEND = "nccl"
+MESH_LOSS_TOL = 1e-2
+MESH_LEAVES = ("embed", "layers.0.00_attn.wq", "layers.3.01_mlp.w_down", "final_norm")
+MESH_DRYRUN = (("qwen3-4b", "train_4k"), ("mixtral-8x7b", "decode_32k"))
+
+
+def _mesh_cfg():
+    import dataclasses
+
+    from repro_torch.configs import registry
+
+    return dataclasses.replace(registry.get_config("qwen3-4b"), n_layers=MESH_LAYERS)
+
+
+def _mesh_step(torch, np, params, model):
+    """The phase's step function, batch and optimizer state."""
+    from repro_torch.train import optimizer as opt_lib, train_loop
+
+    cfg = model.cfg
+    batch = {"tokens": torch.as_tensor(_synthetic(cfg, MESH_SEQ, MESH_BATCH), device="cuda")}
+    opt_state = opt_lib.init_state(params)
+    step = train_loop.build_train_step(model, opt_lib.AdamWConfig(
+        lr=TRAIN_LR, warmup_steps=1, total_steps=MESH_STEPS))
+    return step, batch, opt_state
+
+
+def _mesh_leaves(params, full) -> dict:
+    """MESH_LEAVES of ``params`` as host tensors (DTensors gathered)."""
+    named = dict(params.named_parameters())
+    return {n: full(named[n]).detach().float().cpu() for n in MESH_LEAVES}
+
+
+def mesh_single(torch, np, out: str) -> dict:
+    """(a)'s reference: the plain single-rank step on the card; saves
+    step 0's update of MESH_LEAVES to ``out``."""
+    from repro_torch.models.api import build_model
+
+    model = build_model(_mesh_cfg())
+    params = model.trainable(model.init_params(seed=0))
+    step, batch, opt_state = _mesh_step(torch, np, params, model)
+    before = _mesh_leaves(params, lambda t: t)
+    losses, ms = [], []
+    for i in range(MESH_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, _, m = step(params, opt_state, batch)
+        losses.append(float(m["loss_total"]))
+        ms.append((time.perf_counter() - t1) * 1e3)
+        if i == 0:
+            after = _mesh_leaves(params, lambda t: t)
+            torch.save({n: after[n] - before[n] for n in MESH_LEAVES}, out)
+    n_params = sum(p.numel() for p in params.parameters())
+    del params, opt_state, step
+    return {"losses": losses, "ms": ms, "n_params": n_params,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def mesh_rank() -> None:
+    """One rank of phase 13, spawned by ``phase_mesh``: (a) the sharded
+    step of ``_mesh_cfg()`` on MESH_SHAPE, (b) ``launch.train`` stopped
+    and resumed; prints one ``RANK`` JSON line, with the sorter kernels'
+    launches of (a) and (b) on this rank."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import cost_analysis, mesh as tmesh
+    from repro_torch.launch.train import train
+    from repro_torch.models.api import build_model
+    from repro_torch.sharding import rules, spmd
+
+    env = os.environ
+    shape = tuple(json.loads(env["MESH_SHAPE"]))
+    tmesh.initialize_multiprocess(
+        f"file://{env['MESH_STORE']}", int(env["WORLD_SIZE"]), int(env["RANK"]),
+        backend=env["MESH_BACKEND"], device="cuda", timeout_s=300)
+    rank = torch.distributed.get_rank()
+    ops.reset_launches()
+    mesh = tmesh.make_device_mesh(shape, ("data", "model"))
+    rules.set_active_mesh(mesh)
+    model = build_model(_mesh_cfg())
+    params = model.trainable(model.init_params(seed=0))
+    spmd.distribute_params(params, mesh)
+    torch.cuda.empty_cache()
+    step, batch, opt_state = _mesh_step(torch, np, params, model)
+    before = _mesh_leaves(params, spmd.full)
+    losses, ms, colls = [], [], {}
+    for i in range(MESH_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if i == MESH_STEPS - 1:  # the collectives of one step, counted
+            with cost_analysis.CostMode() as mode:
+                _, _, m = step(params, opt_state, batch)
+            colls = mode.cost.as_dict()["collectives"]
+        else:
+            _, _, m = step(params, opt_state, batch)
+        losses.append(float(m["loss_total"]))
+        ms.append((time.perf_counter() - t1) * 1e3)
+        if i == 0:
+            after = _mesh_leaves(params, spmd.full)
+            upd = {n: after[n] - before[n] for n in MESH_LEAVES}
+    res = {"losses": losses, "ms": ms, "collectives": colls,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "placements": {n: [str(p) for p in dict(params.named_parameters())[n].placements]
+                          for n in MESH_LEAVES}}
+    if rank == 0:
+        ref = torch.load(env["MESH_REF"])
+        d1 = sum(float(ref[n].abs().sum()) for n in MESH_LEAVES)
+        dd = sum(float((upd[n] - ref[n]).abs().sum()) for n in MESH_LEAVES)
+        res["update"] = {"d1": d1, "dd": dd}
+    del params, opt_state, step
+    rules.set_active_mesh(None)
+    torch.cuda.empty_cache()
+    # (b) the launcher at smoke size, stopped at step 2 and resumed
+    kw = dict(smoke=True, steps=4, batch=4, seq=16, log_every=100)
+    ck = env["MESH_CKPT"]
+    res["b_full"] = train("qwen3-4b", mesh_shape=shape, **kw)
+    train("qwen3-4b", mesh_shape=shape, ckpt_dir=ck, ckpt_every=2, **{**kw, "steps": 2})
+    res["b_resumed_4x1"] = train("qwen3-4b", mesh_shape=(int(env["WORLD_SIZE"]), 1),
+                                 ckpt_dir=ck, ckpt_every=100, **kw)
+    res["launches"] = launch_counts()
+    print("RANK " + json.dumps(res), flush=True)
+    tmesh.exit_rank()
+
+
+def phase_mesh(torch, results: dict) -> None:
+    """13. The sharded LM step (see the module docstring)."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch.train import train
+
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    world = MESH_SHAPE[0] * MESH_SHAPE[1]
+    # (c) the dry run, each cell in a process of its own (a fake process
+    # group), on the host's cores beside (a) and (b)
+    dry_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    dry = [(arch, shape, time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", "single", "--out", dry_dir],
+        env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for arch, shape in MESH_DRYRUN]
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+            torch.cuda.reset_peak_memory_stats()
+            ref = mesh_single(torch, np, os.path.join(tmp, "ref.pt"))
+            torch.cuda.empty_cache()
+            log(f"mesh: (a) single rank qwen3-4b {MESH_LAYERS} of 36 layers, "
+                f"{ref['n_params']} parameters: loss_total "
+                f"{[round(x, 4) for x in ref['losses']]}, ms a step "
+                f"{[round(x, 1) for x in ref['ms']]}, peak {ref['peak_gb']:.2f} GB")
+            t1 = time.perf_counter()
+            outs = tmesh.spawn(
+                "import chip_smoke; chip_smoke.mesh_rank()", world, timeout_s=900,
+                env={"PYTHONPATH": os.path.join(ROOT, "src") + os.pathsep + ROOT,
+                     "MESH_STORE": os.path.join(tmp, "store"), "MESH_REF": os.path.join(tmp, "ref.pt"),
+                     "MESH_CKPT": os.path.join(tmp, "ck"), "MESH_BACKEND": MESH_BACKEND,
+                     "MESH_SHAPE": json.dumps(MESH_SHAPE)})
+            ranks = [json.loads([s for s in out.splitlines() if s.startswith("RANK ")][-1][5:])
+                     for out in outs]
+            res = ranks[0]
+            ranks_s = time.perf_counter() - t1
+            # (b) the one-rank resume, in this process (no process group)
+            kw = dict(smoke=True, steps=4, batch=4, seq=16, log_every=100)
+            one = train("qwen3-4b", mesh_shape=(1,), ckpt_dir=os.path.join(tmp, "ck"),
+                        ckpt_every=100, **kw)
+        diffs = [abs(a - b) for a, b in zip(res["losses"], ref["losses"])]
+        require(all(np.isfinite(res["losses"])) and max(diffs) <= MESH_LOSS_TOL,
+                f"(a) sharded losses {res['losses']} against one rank's {ref['losses']}")
+        upd = res["update"]
+        require(upd["dd"] < TRAIN_UPDATE_TOL * upd["d1"],
+                f"(a) step 0's update: dd {upd['dd']} against d1 {upd['d1']}")
+        n_tok = MESH_BATCH * MESH_SEQ
+        steady = statistics.median(res["ms"][1:-1] or res["ms"][1:])
+        log(f"mesh: (a) {MESH_BACKEND} {MESH_SHAPE} ranks on one card: loss_total "
+            f"{[round(x, 4) for x in res['losses']]}, largest difference {max(diffs):.2e}; "
+            f"step 0 update dd/d1 {upd['dd'] / upd['d1']:.4f}; ms a step "
+            f"{[round(x, 1) for x in res['ms']]} (median {steady:.1f} ms, "
+            f"{n_tok / steady * 1e3:.1f} tokens/s); peak {res['peak_gb']:.2f} GB on rank 0; "
+            f"layouts {res['placements']}")
+        log(f"mesh: (a) collectives of one step on rank 0 {json.dumps(res['collectives'])}")
+        full = res["b_full"]
+        for what, got in ((f"({world}, 1)", res["b_resumed_4x1"]), ("one rank", one)):
+            rel = float(np.max(np.abs(np.asarray(got) / np.asarray(full[2:]) - 1)))
+            require(rel <= TRAIN_RESUME_RTOL,
+                    f"(b) resumed on {what}: {got} against {full[2:]}")
+            log(f"mesh: (b) launch.train {MESH_SHAPE} stopped at step 2, resumed on "
+                f"{what}: {[round(x, 4) for x in got]} against {[round(x, 4) for x in full[2:]]}, "
+                f"largest relative difference {rel:.2e}")
+        log(f"mesh: (a)+(b) ranks {ranks_s:.1f} s")
+        for arch, shape, t1, proc in dry:
+            _, err = proc.communicate(timeout=900)
+            secs = time.perf_counter() - t1
+            path = os.path.join(dry_dir, f"{arch}__{shape}__single.json")
+            require(proc.returncode == 0 and os.path.exists(path),
+                    f"(c) dry run {arch} {shape}: {err[-2000:]}")
+            with open(path) as f:
+                cell = json.load(f)
+            require(cell["status"] == "ok", f"(c) dry run {arch} {shape}: {cell}")
+            log(f"mesh: (c) dry run {arch} {shape} single (16 x 16), done "
+                f"{secs:.1f} s into the phase: {json.dumps(cell)}")
+    finally:
+        for _, _, _, proc in dry:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(dry_dir, ignore_errors=True)
+    # the main path ran in the ranks: their counts, summed; this process's
+    # own (the single-rank reference and the one-rank resume) held apart
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+    here = launch_counts()
+    require(not any(launches.values()) and not any(here.values()),
+            f"a sorter kernel launched in the mesh phase: ranks {launches}, here {here}")
+    for key, name in (("encode", "encode_keys"), ("rmi_bucket", "rmi_bucket"),
+                      ("sort_rows", "sort_rows"),
+                      ("histogram", "bucket_histogram")):
+        results[key]["launches_mesh"] = launches[name]
+    log(f"mesh: launches of the four sorter kernels on the {len(ranks)} rank(s) of (a)+(b) "
+        f"{launches}; in this process (the reference step, the one-rank resume) {here}")
+    log(f"mesh: phase {time.perf_counter() - t0:.1f} s")
+
+
 def checksum_file(validate, gensort, path: str) -> int:
     """validate.checksum over the whole file, summed chunk by chunk (the
     checksum is a sum of per-record hashes mod 2**64)."""
@@ -2258,10 +2525,13 @@ def main() -> int:
     # 11. the LM serving path; 12. the LM training path
     phase_lm(torch, results)
     phase_train(torch, results)
+    # 13. the sharded LM step
+    phase_mesh(torch, results)
     log(f"smoke: every phase ok in {time.perf_counter() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches",
-            "launches_distributed", "launches_lm", "launches_train", "max_abs_err",
+            "launches_distributed", "launches_lm", "launches_train", "launches_mesh",
+            "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: results[n][k] for k in keys}
                for n in ("encode", "rmi_bucket", "sort_rows", "histogram")]

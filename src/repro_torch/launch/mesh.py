@@ -13,8 +13,13 @@ per rank over a process group:
   :meth:`DataMesh.all_to_all` with equal splits;
 * a process with no process group is a 1-device mesh (world size 1).
 
-Only 1-D ``("data",)`` meshes are ported: the 2-D and 3-D pod shapes of
-``make_production_mesh`` serve the LM substrate's dry run.
+The sorter's meshes are 1-D ``("data",)`` :class:`DataMesh`es.  The LM
+step's meshes are DTensor ``DeviceMesh``es of any rank over the current
+process group (:func:`make_device_mesh`): ``("data", "model")`` for
+training, and the pod shapes of :func:`make_production_mesh` — 256 GPU
+ranks on a 16 x 16 ``("data", "model")`` mesh, 512 on a 2 x 16 x 16
+``("pod", "data", "model")`` one — which the dry run builds over a fake
+process group in one process.
 
 On one card NCCL runs at world size 1 only (it puts no two ranks on one
 GPU); several ranks sharing a card use gloo, named explicitly, which
@@ -151,17 +156,58 @@ def make_data_mesh(n_dev: "int | None" = None, *, device="cuda") -> DataMesh:
     return DataMesh(group, rank, world, dev)
 
 
-def make_mesh(shape: tuple, axes: tuple, *, device="cuda") -> DataMesh:
-    """A 1-D mesh named ``axes`` over ``shape[0]`` ranks; meshes of
-    more axes belong to the LM substrate and are not ported."""
-    if len(shape) != 1 or len(axes) != 1:
-        raise NotImplementedError(
-            f"only 1-D data meshes are ported, not {tuple(shape)} over "
-            f"{tuple(axes)}"
+def make_mesh(shape: tuple, axes: tuple, *, device="cuda"):
+    """A mesh named ``axes`` of ``shape``: a 1-D :class:`DataMesh` (the
+    sorter's), or a ``DeviceMesh`` (:func:`make_device_mesh`) for more
+    axes."""
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {tuple(shape)} does not match axes {tuple(axes)}")
+    if len(shape) == 1:
+        return dataclasses.replace(
+            make_data_mesh(shape[0], device=device), axis_names=tuple(axes)
         )
-    return dataclasses.replace(
-        make_data_mesh(shape[0], device=device), axis_names=tuple(axes)
-    )
+    return make_device_mesh(shape, axes, device=device)
+
+
+def make_device_mesh(shape: tuple, axes: tuple, *, device="cuda"):
+    """A DTensor ``DeviceMesh`` of ``shape`` named ``axes`` over every rank
+    of the current process group (real ranks or the ``"fake"`` backend),
+    ranks in row-major order.  The shape's product must be the world
+    size; a process without a process group is world size 1."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    n = int(np.prod(shape))
+    if n != world:
+        raise ValueError(
+            f"mesh shape {tuple(shape)} needs {n} ranks, the process group has "
+            f"{world} (start one process per rank and call "
+            "initialize_multiprocess first)"
+        )
+    if not dist.is_initialized():
+        raise ValueError(
+            "a DeviceMesh needs a process group: call initialize_multiprocess "
+            "(world size 1 included)"
+        )
+    dev = rank_device(dist.get_rank(), device)
+    return init_device_mesh(dev.type, tuple(shape), mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
+    """16 x 16 = 256 ranks over ``("data", "model")``; 2 x 16 x 16 = 512
+    over ``("pod", "data", "model")`` when ``multi_pod``."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_device_mesh(shape, axes, device=device)
+
+
+def init_fake_process_group(world_size: int) -> None:
+    """A ``"fake"`` process group of ``world_size`` ranks in this one
+    process (this process is rank 0): collectives return at once and move
+    nothing.  The dry run traces a pod-sized step over it."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world_size)
 
 
 def initialize_multiprocess(

@@ -17,9 +17,15 @@ gets no gradient, and an encoder-decoder arch (whisper), whose loss
 needs ``frontend_embeds``, does not train from this launcher (train it
 through ``train_loop.build_train_step`` with frames in the batch).
 
-``mesh_shape`` is accepted where its product is 1 (one device); data
-parallel training over a ``DataMesh`` and the 2-D mesh are ROADMAP Queue
-1 item 4e.
+``mesh_shape`` names ``("data", "model")`` for two axes and
+``("data",)`` for one, as the reference's does.  Its product must be the
+world size: each rank calls :func:`train` after
+``launch.mesh.initialize_multiprocess``, the parameters and the optimizer
+state become DTensors laid out by ``sharding.rules`` over that mesh, and
+each rank trains on its shard of every batch (``train_loop``).  Without
+a process group the product must be 1 and the step is the plain
+single-device one.  A checkpoint restores onto whatever mesh the run now
+has.
 """
 
 from __future__ import annotations
@@ -30,11 +36,38 @@ import time
 
 import torch
 
+import torch.distributed as dist
+
 from repro_torch.configs import registry
 from repro_torch.core.executor import resolve_device
 from repro_torch.data.pipeline import PipelineConfig, SyntheticLM
+from repro_torch.launch.mesh import make_device_mesh, rank_device
 from repro_torch.models.api import build_model
+from repro_torch.sharding import rules, spmd
 from repro_torch.train import checkpoint, fault, optimizer as opt_lib, train_loop
+
+
+def _mesh_axes(mesh_shape: tuple) -> tuple:
+    if len(mesh_shape) == 2:
+        return ("data", "model")
+    if len(mesh_shape) == 1:
+        return ("data",)
+    raise ValueError(f"mesh_shape {tuple(mesh_shape)}: one or two axes")
+
+
+def _train_mesh(mesh_shape: tuple, device="cuda"):
+    """The ``DeviceMesh`` of ``mesh_shape`` over this process group, or
+    ``None`` without one; a shape whose product is not the world size
+    raises ``ValueError``."""
+    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    n = math.prod(mesh_shape)
+    if n != world:
+        raise ValueError(
+            f"mesh_shape {tuple(mesh_shape)} holds {n} ranks, the world size is {world}"
+        )
+    if not dist.is_initialized():
+        return None
+    return make_device_mesh(tuple(mesh_shape), _mesh_axes(mesh_shape), device=device)
 
 
 def train(
@@ -55,12 +88,22 @@ def train(
 ) -> list[float]:
     """Train ``arch`` for ``steps`` steps (from the latest checkpoint in
     ``ckpt_dir`` with ``resume``); returns each step's ``loss_total``."""
-    if math.prod(mesh_shape) != 1:
-        raise NotImplementedError(
-            f"mesh_shape {tuple(mesh_shape)}: only one device is ported; data "
-            "parallel training and the 2-D mesh are ROADMAP Queue 1 item 4e"
-        )
+    _mesh_axes(mesh_shape)
     dev = resolve_device(device)
+    mesh = _train_mesh(mesh_shape, device)
+    if mesh is not None:
+        dev = rank_device(dist.get_rank(), device)
+    rules.set_active_mesh(mesh)
+    try:
+        return _train(arch, mesh, dev, smoke=smoke, steps=steps, batch=batch, seq=seq,
+                      ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, microbatches=microbatches,
+                      lr=lr, log_every=log_every, resume=resume)
+    finally:
+        rules.set_active_mesh(None)
+
+
+def _train(arch, mesh, dev, *, smoke, steps, batch, seq, ckpt_dir, ckpt_every,
+           microbatches, lr, log_every, resume) -> list[float]:
     cfg = registry.get_config(arch, smoke=smoke)
     model = build_model(cfg)
 
@@ -70,6 +113,8 @@ def train(
     pipe = SyntheticLM(PipelineConfig(vocab=cfg.vocab_raw, seq_len=seq, global_batch=batch))
 
     params = model.trainable(model.init_params(seed=0, device=dev))
+    if mesh is not None:
+        spmd.distribute_params(params, mesh)
     opt_state = opt_lib.init_state(params)
     start = 0
     if ckpt_dir and resume:

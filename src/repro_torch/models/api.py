@@ -6,16 +6,17 @@ over ``models/transformer.py`` for decoder-only models and
 frame embeddings as ``frontend_embeds``).
 
 The dry-run specs (``input_specs``, ``params_spec``, ``cache_spec``) are
-not ported yet (ROADMAP Queue 1 item 4e).
+tensors on the ``meta`` device: shapes and dtypes, nothing allocated.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import torch
 from torch import nn
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.executor import resolve_device
 from repro_torch.models import encdec, transformer
 
@@ -72,6 +73,43 @@ class Model:
 
     def init_cache(self, batch: int, max_seq: int, device="cuda"):
         return self._impl.init_cache(self.cfg, batch, max_seq, resolve_device(device))
+
+    # ---- dry-run specs ---------------------------------------------------
+    def input_specs(self, shape: ShapeConfig) -> dict[str, torch.Tensor]:
+        """``meta`` stand-ins for every model input of ``shape``: tokens
+        int32 (a vit model's image tokens are part of the sequence budget)
+        and f32 ``frontend_embeds`` where the arch takes them; one token a
+        row to decode."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+        meta = torch.device("meta")
+        if shape.kind == "decode":
+            return {"tokens": torch.empty((b, 1), dtype=torch.int32, device=meta)}
+        if shape.kind not in ("train", "prefill"):
+            raise ValueError(shape.kind)
+        text = s - cfg.n_frontend_tokens if cfg.frontend == "vit" else s
+        specs = {"tokens": torch.empty((b, text), dtype=torch.int32, device=meta)}
+        if cfg.frontend != "none":
+            specs["frontend_embeds"] = torch.empty(
+                (b, cfg.n_frontend_tokens, cfg.d_frontend or cfg.d_model),
+                dtype=torch.float32, device=meta)
+        return specs
+
+    def params_spec(self) -> dict[str, torch.Tensor]:
+        """name -> ``meta`` tensor of every parameter."""
+        return dict(self.empty_params("meta").named_parameters())
+
+    def empty_params(self, device) -> nn.Module:
+        """The parameter module, unfilled, on ``device`` (``meta``: nothing
+        allocated; under a ``FakeTensorMode``, fake tensors)."""
+        cls = encdec.EncDec if self.cfg.enc_dec else transformer.Transformer
+        return cls(self.cfg, device=torch.device(device))
+
+    def cache_spec(self, shape: ShapeConfig):
+        """The decode cache of ``shape`` (global batch x its sequence) on
+        the ``meta`` device."""
+        return self._impl.init_cache(self.cfg, shape.global_batch, shape.seq_len,
+                                     torch.device("meta"))
 
 
 def build_model(cfg: ModelConfig) -> Model:

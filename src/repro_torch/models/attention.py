@@ -10,8 +10,18 @@ place and attends over the whole cache under a mask.  A sliding-window
 layer keeps a ring of ``min(max_seq, window)`` slots; token ``t`` lives
 in slot ``t % ring``, from prefill on.
 
-Not ported here: the ``REPRO_OPT_SHARDING`` branches, the ``shard_map``
-cache write and ``rules.constrain`` (ROADMAP Queue 1 item 4e).
+On DTensors (a sharded step, ``sharding/spmd.py``) the same code runs
+under DTensor's sharding propagation.  A sharded cache is written by a
+``local_map`` with shard-local index arithmetic (``_cache_write``, the
+reference's ``shard_map`` ``_cache_update``): each sequence shard checks
+which of the new tokens fall in its range and writes them locally, so
+the write moves no cache bytes.  With ``REPRO_OPT_SHARDING`` the queries'
+heads are pinned to the "model" axis, as the reference's constraint
+pins them.  The blockwise attention runs in a ``local_map`` over batch
+shards (and, in opt mode, head shards over "model": the reference's
+constraints on its blocks and carries), where DTensor's propagation of
+its batched products fails.  Without a mesh every one of these is the
+identity.
 """
 
 from __future__ import annotations
@@ -20,6 +30,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import layers
+from repro_torch.sharding import rules, spmd
 
 NEG_INF = -1e9
 
@@ -70,18 +81,25 @@ def _project_qkv(p: Attention, cfg, xq: torch.Tensor, xkv: torch.Tensor):
         q = q + p.bq.to(dt)
         kk = kk + p.bk.to(dt)
         v = v + p.bv.to(dt)
-    q = q.reshape(*q.shape[:2], h, hd)
-    kk = kk.reshape(*kk.shape[:2], k, hd)
-    v = v.reshape(*v.shape[:2], k, hd)
+    q = spmd.split_heads(q, h)
+    kk = spmd.split_heads(kk, k)
+    v = spmd.split_heads(v, k)
     if p.qk_norm:
         q = layers.rms_norm(q, p.q_norm, cfg.norm_eps)
         kk = layers.rms_norm(kk, p.k_norm, cfg.norm_eps)
+    if rules.opt_sharding_enabled():
+        q = rules.constrain(q, "B", None, "model", None)
     return q, kk, v
 
 
 def _sdpa(q, k, v, mask, n_rep: int):
     """q (B,Sq,H,hd), k/v (B,Sk,K,hd), mask (B|1,Sq,Sk) bool (True=keep).
-    Scores and softmax in f32; the weights are cast to q's dtype."""
+    Scores and softmax in f32; the weights are cast to q's dtype.  On
+    DTensors in a ``local_map`` as :func:`_sdpa_chunked` runs (the mask
+    then (1,Sq,Sk); a sequence-sharded cache is gathered whole for it)."""
+    if spmd.is_dtensor(q):
+        return spmd.on_batch_heads(lambda a, b, c: _sdpa(a, b, c, mask, n_rep),
+                                   q, k, v, heads=rules.opt_sharding_enabled())
     b, sq, h, hd = q.shape
     kv = k.shape[2]
     qg = q.reshape(b, sq, kv, n_rep, hd)
@@ -93,6 +111,19 @@ def _sdpa(q, k, v, mask, n_rep: int):
 
 
 def _sdpa_chunked(q, k, v, n_rep: int, *, causal: bool = True, window: int = 0):
+    """:func:`_blockwise`; on DTensors in a ``local_map`` over the batch
+    shards — and, with ``REPRO_OPT_SHARDING``, the head shards over
+    "model" where the query and kv heads both divide it (the reference's
+    opt-mode constraints on the blocks and their carries): blocks of
+    different rows and heads never meet."""
+    if not spmd.is_dtensor(q):
+        return _blockwise(q, k, v, n_rep, causal=causal, window=window)
+    return spmd.on_batch_heads(
+        lambda a, b, c: _blockwise(a, b, c, n_rep, causal=causal, window=window),
+        q, k, v, heads=rules.opt_sharding_enabled())
+
+
+def _blockwise(q, k, v, n_rep: int, *, causal: bool = True, window: int = 0):
     """Flash-style blockwise attention: O(S·block) memory instead of
     O(S²).
 
@@ -215,6 +246,48 @@ def init_cache(cfg, batch: int, max_seq: int, dtype=layers.COMPUTE_DTYPE, device
     }
 
 
+def _cache_write(cache: dict, k: torch.Tensor, v: torch.Tensor, runs) -> bool:
+    """Write the rows of ``k``/``v`` (B, n, K, hd) into a DTensor cache and
+    return True (False for a plain cache, which the caller writes
+    itself).  ``runs`` lists ``(row, slot, length)``: rows
+    ``row..row+length-1`` go to slots ``slot..``.  A ``local_map`` over
+    the cache's own layout: the new rows follow the cache's batch
+    sharding (replicated elsewhere), and each sequence shard writes the
+    slots in its range at shard-local positions (``local = slot - shard
+    * s_loc``, kept where ``0 <= local < s_loc``), in place."""
+    if not spmd.is_dtensor(cache["k"]):
+        return False
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    ck = cache["k"]
+    mesh, pl = ck.device_mesh, tuple(ck.placements)
+    npl = tuple(Shard(0) if p == Shard(0) else Replicate() for p in pl)
+    seq_dims = [i for i, p in enumerate(pl) if p == Shard(1)]
+
+    def local(ck, cv, kn, vn):
+        # flat shard index along the sharded seq axes, in mesh order
+        coord, idx = mesh.get_coordinate(), 0
+        for i in seq_dims:
+            idx = idx * mesh.size(i) + coord[i]
+        s_loc = ck.shape[1]
+        for row, slot, n in runs:
+            lo = max(slot, idx * s_loc)
+            hi = min(slot + n, (idx + 1) * s_loc)
+            if lo < hi:  # in_range
+                src = slice(row + lo - slot, row + hi - slot)
+                dst = slice(lo - idx * s_loc, hi - idx * s_loc)
+                ck[:, dst] = kn[:, src].to(ck.dtype)
+                cv[:, dst] = vn[:, src].to(cv.dtype)
+        return ck, cv
+
+    cache["k"], cache["v"] = local_map(
+        local, out_placements=(list(pl), list(pl)), in_placements=(pl, pl, npl, npl),
+        device_mesh=mesh, redistribute_inputs=True,
+    )(ck, cache["v"], k, v)
+    return True
+
+
 def _decode_qkv(p: Attention, cfg, x: torch.Tensor, pos: int):
     xn = layers.rms_norm(x, p.norm, cfg.norm_eps)
     q, k_new, v_new = _project_qkv(p, cfg, xn, xn)
@@ -231,8 +304,9 @@ def attend_decode(p: Attention, cfg, x, cache: dict, pos: int):
     if pos >= s_max:
         raise ValueError(f"decode position {pos} is past the cache's {s_max} slots")
     q, k_new, v_new = _decode_qkv(p, cfg, x, pos)
-    cache["k"][:, pos] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][:, pos] = v_new[:, 0].to(cache["v"].dtype)
+    if not _cache_write(cache, k_new, v_new, [(0, pos, 1)]):
+        cache["k"][:, pos] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][:, pos] = v_new[:, 0].to(cache["v"].dtype)
     mask = torch.arange(s_max, device=x.device)[None, :] <= pos
     out = _sdpa(
         q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), mask[:, None, :],
@@ -255,8 +329,9 @@ def attend_rolling(p: Attention, cfg, x, cache: dict, pos: int):
         raise ValueError(f"decode position {pos} is past the cache's {ring} slots")
     q, k_new, v_new = _decode_qkv(p, cfg, x, pos)
     slot = pos % ring
-    cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
+    if not _cache_write(cache, k_new, v_new, [(0, slot, 1)]):
+        cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
     written = torch.arange(ring, device=x.device)[None, :] <= min(pos, ring - 1)
     mask = written | (pos >= ring)
     out = _sdpa(
@@ -273,10 +348,16 @@ def fill_cache(cache: dict, k: torch.Tensor, v: torch.Tensor, *, ring: bool) -> 
     if not ring:
         if s > n:
             raise ValueError(f"a prompt of {s} tokens does not fit {n} cache slots")
-        cache["k"][:, :s] = k.to(cache["k"].dtype)
-        cache["v"][:, :s] = v.to(cache["v"].dtype)
+        if not _cache_write(cache, k, v, [(0, 0, s)]):
+            cache["k"][:, :s] = k.to(cache["k"].dtype)
+            cache["v"][:, :s] = v.to(cache["v"].dtype)
         return
     first = max(0, s - n)
+    # tokens first..s-1 at slots t % n: at most two runs of slots
+    wrap = min(s, (first // n + 1) * n)
+    runs = [(first, first % n, wrap - first), (wrap, 0, s - wrap)]
+    if _cache_write(cache, k, v, [r for r in runs if r[2] > 0]):
+        return
     slots = torch.arange(first, s, device=k.device) % n
     cache["k"][:, slots] = k[:, first:].to(cache["k"].dtype)
     cache["v"][:, slots] = v[:, first:].to(cache["v"].dtype)
@@ -286,9 +367,10 @@ def attend_cross(p: Attention, cfg, x, kv_cache: dict):
     """Cross-attention against precomputed encoder K/V (whisper decoder);
     blockwise above ``CHUNK_THRESHOLD`` queries, where ``_sdpa_chunked``
     pads the kv to a block multiple and masks the padding."""
+    x = spmd.batch_layout(x)
     xn = layers.rms_norm(x, p.norm, cfg.norm_eps)
     dt = x.dtype
-    q = (xn @ p.wq.to(dt)).reshape(*x.shape[:2], cfg.n_heads, cfg.d_head)
+    q = spmd.split_heads(xn @ p.wq.to(dt), cfg.n_heads)
     k, v = kv_cache["k"].to(dt), kv_cache["v"].to(dt)
     n_rep = cfg.n_heads // cfg.n_kv
     if x.shape[1] > CHUNK_THRESHOLD:
@@ -303,6 +385,5 @@ def encode_cross_kv(p: Attention, cfg, enc_out) -> dict:
     """A decoder layer's cross K/V from the encoder's output."""
     xn = layers.rms_norm(enc_out, p.norm_kv, cfg.norm_eps)
     dt = enc_out.dtype
-    shape = (*enc_out.shape[:2], cfg.n_kv, cfg.d_head)
-    return {"k": (xn @ p.wk.to(dt)).reshape(shape),
-            "v": (xn @ p.wv.to(dt)).reshape(shape)}
+    return {"k": spmd.split_heads(xn @ p.wk.to(dt), cfg.n_kv),
+            "v": spmd.split_heads(xn @ p.wv.to(dt), cfg.n_kv)}

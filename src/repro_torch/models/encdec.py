@@ -17,11 +17,11 @@ from __future__ import annotations
 
 import torch
 from torch import nn
-import torch.nn.functional as F
 
 from repro_torch.core.executor import resolve_device
 from repro_torch.models import attention, layers, transformer
 from repro_torch.models.transformer import _slot
+from repro_torch.sharding import spmd
 
 
 def enc_plan(cfg):
@@ -122,9 +122,8 @@ def loss_fn(cfg, params: EncDec, batch: dict, *, remat: bool = True):
     """Next-token cross-entropy, differentiable in the parameters."""
     tokens = batch["tokens"]
     logits, _ = forward(cfg, params, tokens, batch["frontend_embeds"], remat=remat)
-    lp = F.log_softmax(logits[:, :-1].float(), dim=-1)
     tgt = tokens[:, 1:].to(torch.int64)
-    loss = -torch.gather(lp, -1, tgt[..., None])[..., 0].mean()
+    loss = spmd.on_batch_rows(transformer.token_nll, logits, tgt).mean()
     return loss, {"loss": loss}
 
 
@@ -146,7 +145,7 @@ def prefill(cfg, params: EncDec, tokens, frames, max_seq: int | None = None):
     if max_seq < s:
         raise ValueError(f"max_seq {max_seq} is shorter than the prompt ({s})")
     positions = transformer._positions(s, x.device)
-    cache = init_cache(cfg, x.shape[0], max_seq, x.device)
+    cache = init_cache(cfg, x.shape[0], max_seq, x.device, spmd.mesh_of(x))
     for layer, period, lcross, lcache in zip(params.layers, params.periods, cross,
                                              cache.layers):
         for i, kind in enumerate(period):

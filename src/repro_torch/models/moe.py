@@ -15,6 +15,13 @@ records.  The dispatch goes through the port's ``core.partition``:
 
 The aux metrics (Switch-style load balance, router z-loss, dropped
 fraction) are the reference's.
+
+On DTensors (a sharded step, ``sharding/spmd.py``) the dispatch and the
+two index-adds run in ``local_map`` regions on replicated inputs — the
+reference's global capacity over every token of the batch — and with
+``REPRO_OPT_SHARDING`` the dispatched ``(E, C, D)`` slots and the
+experts' outputs are pinned to the expert axis over "model" (expert
+parallelism, the reference's constraints).
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from torch import nn
 
 from repro_torch.core import partition
 from repro_torch.models import layers
+from repro_torch.sharding import rules, spmd
 
 
 class MoE(nn.Module):
@@ -74,35 +82,52 @@ def apply_moe(p: MoE, cfg, x: torch.Tensor, *, capacity_factor: float | None = N
     cap_f = capacity_factor if capacity_factor is not None else m.capacity_factor
     capacity = _round_up(max(int(t * k / e * cap_f), 8), 8)
 
-    xn = layers.rms_norm(x, p.norm, cfg.norm_eps).reshape(t, d)
+    # on DTensors: the tokens over the batch axes, so that the gradient
+    # reaching this reshape comes back in a layout that splits into (B, S)
+    xn = spmd.batch_layout(layers.rms_norm(x, p.norm, cfg.norm_eps).reshape(t, d))
     logits, probs, top_p, top_e = route(p, cfg, xn)
 
     # ---- sort-based dispatch (shared machinery with the ELSAR sorter)
     flat_e = top_e.reshape(t * k).to(torch.int32)
-    gather_idx, valid, counts = partition.bucket_matrix(flat_e, e, capacity)
+    gather_idx, valid, counts = spmd.on_replicas(
+        lambda fe: partition.bucket_matrix(fe, e, capacity), 3, flat_e)
     gather_idx = gather_idx.to(torch.int64)
     token_of_slot = gather_idx // k  # (E, C) source token per dispatch slot
     # (E, C) combine weights (0 for padding/overflow)
     w_of_slot = torch.where(valid, top_p.reshape(t * k)[gather_idx], 0.0)
     xe = torch.where(valid[..., None], xn[token_of_slot], 0.0)  # (E, C, D)
+    ep = rules.opt_sharding_enabled() and e % 16 == 0
+    if ep:
+        # expert parallelism: each rank runs its own experts' FFN, and the
+        # dispatch and combine become all-to-all-shaped transfers
+        xe = rules.constrain(xe, "model", None, None)
 
     dt = x.dtype
     g = torch.bmm(xe, p.w_gate.to(dt))
     u = torch.bmm(xe, p.w_up.to(dt))
     h = torch.bmm(layers.silu(g) * u, p.w_down.to(dt))
+    if ep:
+        h = rules.constrain(h, "model", None, None)
 
     # ---- combine (scatter-add back, weighted)
-    out = torch.zeros((t, d), dtype=dt, device=x.device).index_add_(
-        0, token_of_slot.reshape(-1),
-        (h * w_of_slot[..., None].to(dt)).reshape(e * capacity, d),
+    # on DTensors the weighted slots are replicated before they are
+    # flattened: the gradient then comes back through the flattening whole
+    src = spmd.replicated(h * w_of_slot[..., None].to(dt))
+    out = spmd.on_replicas(
+        lambda idx, src: torch.zeros((t, d), dtype=dt, device=src.device).index_add_(
+            0, idx, src),
+        1, token_of_slot.reshape(-1), src.reshape(e * capacity, d),
     )
     if m.n_shared > 0:
         out = out + layers.apply_mlp(p.shared, xn)
+    out = spmd.batch_layout(out)  # as xn, for the (B, S) split below
 
     # ---- aux losses / metrics (Switch LB + z-loss)
     me = probs.mean(0)  # (E,) mean router prob
-    ce = torch.zeros(e, device=x.device).index_add_(
-        0, flat_e, torch.ones(t * k, device=x.device)
+    ce = spmd.on_replicas(
+        lambda fe: torch.zeros(e, device=fe.device).index_add_(
+            0, fe, torch.ones(t * k, device=fe.device)),
+        1, flat_e,
     ) / (t * k)  # load fraction
     aux = {
         "moe_lb_loss": e * torch.sum(me * ce),
@@ -110,4 +135,6 @@ def apply_moe(p: MoE, cfg, x: torch.Tensor, *, capacity_factor: float | None = N
         "moe_dropped_frac": torch.clamp_min(counts - capacity, 0).sum()
         / max(t * k, 1),
     }
+    # on DTensors: reduced scalars, so that layers' terms add up
+    aux = {name: spmd.replicated(val) for name, val in aux.items()}
     return x + out.reshape(b, s, d), aux

@@ -37,8 +37,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.executor import resolve_device
 from repro_torch.models import attention, layers, mamba, moe, xlstm
+from repro_torch.sharding import spmd
 
 RECURRENT_KINDS = ("mamba", "mlstm", "slstm")
+_RECURRENT = {"mamba": mamba.apply_mamba, "mlstm": xlstm.apply_mlstm,
+              "slstm": xlstm.apply_slstm}
 
 
 def _slot(i: int, kind: str) -> str:
@@ -150,17 +153,27 @@ def init_sublayer_cache(kind: str, cfg, batch: int, max_seq: int, device=None):
     return None  # attn_bidir / mlp / moe keep no decode state
 
 
-def init_cache(cfg, batch: int, max_seq: int, device=None) -> Cache:
+def init_cache(cfg, batch: int, max_seq: int, device=None, mesh=None) -> Cache:
+    """Zeroed decode state; on ``mesh`` each tensor is a DTensor laid out
+    by ``rules.cache_spec`` (sequence-sharded when the batch is 1, as the
+    reference's dry run lays out its long-context cells), built from one
+    row expanded over the batch, so that no rank holds the whole cache."""
+    rows = batch if mesh is None else 1
     out = []
     for n_repeat, period in cfg.layer_plan():
         for _ in range(n_repeat):
             ch = {}
             for i, kind in enumerate(period):
-                c = init_sublayer_cache(kind, cfg, batch, max_seq, device)
+                c = init_sublayer_cache(kind, cfg, rows, max_seq, device)
+                if c is not None and mesh is not None:
+                    c = {k: t.expand(batch, *t.shape[1:]) for k, t in c.items()}
                 if c is not None:
                     ch[_slot(i, kind)] = c
             out.append(ch)
-    return Cache(out)
+    cache = Cache(out)
+    if mesh is not None:
+        spmd.shard_cache(cache, mesh, seq_sharded=batch == 1)
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -171,6 +184,7 @@ def init_cache(cfg, batch: int, max_seq: int, device=None) -> Cache:
 def apply_sublayer_seq(kind: str, p, cfg, x, positions, *, want_kv: bool = False):
     """Full-sequence path (train / prefill). Returns (x, (k, v)|None, aux)."""
     aux, kv = {}, None
+    x = spmd.batch_layout(x)
     if kind in ("attn", "attn_swa", "attn_bidir"):
         window = cfg.window if kind == "attn_swa" else 0
         causal = kind != "attn_bidir"
@@ -185,12 +199,9 @@ def apply_sublayer_seq(kind: str, p, cfg, x, positions, *, want_kv: bool = False
         x = x + layers.apply_mlp(p, xn)
     elif kind == "moe":
         x, aux = moe.apply_moe(p, cfg, x)
-    elif kind == "mamba":
-        x = mamba.apply_mamba(p, cfg, x)
-    elif kind == "mlstm":
-        x = xlstm.apply_mlstm(p, cfg, x)
-    elif kind == "slstm":
-        x = xlstm.apply_slstm(p, cfg, x)
+    elif kind in RECURRENT_KINDS:
+        apply = _RECURRENT[kind]
+        x, _ = spmd.batch_local(lambda m, xx, _: (apply(m, cfg, xx), None), p, x)
     else:
         raise ValueError(kind)
     return x, kv, aux
@@ -198,6 +209,7 @@ def apply_sublayer_seq(kind: str, p, cfg, x, positions, *, want_kv: bool = False
 
 def apply_sublayer_step(kind: str, p, cfg, x, cache, pos: int):
     """Single-token decode path; caches are updated in place."""
+    x = spmd.batch_layout(x)
     if kind == "attn":
         return attention.attend_decode(p, cfg, x, cache, pos)
     if kind == "attn_swa":  # layer_plan gives it only where window > 0
@@ -210,13 +222,20 @@ def apply_sublayer_step(kind: str, p, cfg, x, cache, pos: int):
     if kind == "moe":
         x, _ = moe.apply_moe(p, cfg, x, capacity_factor=4.0)
         return x
-    if kind == "mamba":
-        return mamba.apply_mamba(p, cfg, x, cache)
-    if kind == "mlstm":
-        return xlstm.apply_mlstm(p, cfg, x, cache)
-    if kind == "slstm":
-        return xlstm.apply_slstm(p, cfg, x, cache)
+    if kind in RECURRENT_KINDS:
+        if not spmd.is_dtensor(x):
+            return _RECURRENT[kind](p, cfg, x, cache)
+        x, state = spmd.batch_local(lambda m, xx, c: _step_local(kind, m, cfg, xx, c),
+                                    p, x, dict(cache))
+        cache.update(state)
+        return x
     raise ValueError(kind)
+
+
+def _step_local(kind: str, p, cfg, x, cache: dict):
+    """One recurrent decode step on plain tensors: (x, the new state)."""
+    cache = dict(cache)
+    return _RECURRENT[kind](p, cfg, x, cache), cache
 
 
 # ---------------------------------------------------------------------------
@@ -227,7 +246,7 @@ def apply_sublayer_step(kind: str, p, cfg, x, cache, pos: int):
 def embed_inputs(cfg, params: Transformer, tokens, frontend_embeds=None):
     # gather, then cast: the reference's cast-then-gather, without casting
     # the whole table
-    x = params.embed[tokens.to(torch.int64)].to(layers.COMPUTE_DTYPE)
+    x = spmd.gather_rows(params.embed, tokens.to(torch.int64)).to(layers.COMPUTE_DTYPE)
     if cfg.frontend == "vit" and frontend_embeds is not None:
         fr = params.frontend
         f = frontend_embeds.to(layers.COMPUTE_DTYPE)
@@ -239,9 +258,14 @@ def embed_inputs(cfg, params: Transformer, tokens, frontend_embeds=None):
 
 def lm_logits(cfg, params: Transformer, x: torch.Tensor) -> torch.Tensor:
     """Final norm, then the head in f32 on bf16-rounded operands."""
-    x = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
+    x = layers.rms_norm(spmd.batch_layout(x), params.final_norm, cfg.norm_eps)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
-    return x.float() @ head.to(x.dtype).float()
+    # on DTensors: the head gathered over d_model (else DTensor may gather
+    # the activations and leave the logits a partial sum), then each
+    # rank's rows of the batch with the vocab whole, so that the softmax
+    # and the loss stay on the batch shard
+    head = spmd.gather_dim(head, 0)
+    return spmd.batch_layout(x.float() @ head.to(x.dtype).float())
 
 
 def _positions(s: int, device) -> torch.Tensor:
@@ -292,10 +316,16 @@ def loss_fn(cfg, params: Transformer, batch: dict, *, remat: bool = True):
     n_front = logits.shape[1] - tokens.shape[1]
     logits_text = logits[:, n_front:, :]
     tgt = tokens[:, 1:].to(torch.int64)
-    lp = F.log_softmax(logits_text[:, :-1].float(), dim=-1)
-    loss = -torch.gather(lp, -1, tgt[..., None])[..., 0].mean()
+    loss = spmd.on_batch_rows(token_nll, logits_text, tgt).mean()
     total = loss + 0.01 * aux["moe_lb_loss"] + 0.001 * aux["moe_z_loss"]
     return total, {"loss": loss, **aux}
+
+
+def token_nll(logits, tgt):
+    """Each next token's negative log-likelihood (B, S-1) under logits
+    (B, S, V), in f32."""
+    lp = F.log_softmax(logits[:, :-1].float(), dim=-1)
+    return -torch.gather(lp, -1, tgt[..., None])[..., 0]
 
 
 def prefill(cfg, params: Transformer, tokens, frontend_embeds=None,
@@ -311,7 +341,7 @@ def prefill(cfg, params: Transformer, tokens, frontend_embeds=None,
     if max_seq < s:
         raise ValueError(f"max_seq {max_seq} is shorter than the prompt ({s})")
     positions = _positions(s, x.device)
-    cache = init_cache(cfg, x.shape[0], max_seq, x.device)
+    cache = init_cache(cfg, x.shape[0], max_seq, x.device, spmd.mesh_of(x))
     for layer, period, lcache in zip(params.layers, params.periods, cache.layers):
         for i, kind in enumerate(period):
             slot = _slot(i, kind)
@@ -332,13 +362,23 @@ def _prefill_recurrent(kind: str, p, cfg, x, cache: dict):
     """Sequence forward of a recurrent sublayer that leaves its final
     state in ``cache``: mamba's chunked scan with ``return_state``; mLSTM
     and sLSTM step the recurrence token by token from the initial state,
-    as the reference does."""
+    as the reference does.  On DTensors each rank runs its rows of the
+    batch (``spmd.batch_local``)."""
+    x = spmd.batch_layout(x)
+    x, state = spmd.batch_local(lambda m, xx, c: _prefill_local(kind, m, cfg, xx, c),
+                                p, x, dict(cache))
+    cache.update(state)
+    return x
+
+
+def _prefill_local(kind: str, p, cfg, x, cache: dict):
+    """:func:`_prefill_recurrent` on plain tensors: (x, the final state)."""
     if kind == "mamba":
-        x, state = mamba.apply_mamba(p, cfg, x, return_state=True)
-        cache.update(state)
-        return x
+        return mamba.apply_mamba(p, cfg, x, return_state=True)
     step = xlstm.apply_mlstm if kind == "mlstm" else xlstm.apply_slstm
-    return torch.cat([step(p, cfg, x[:, t : t + 1], cache) for t in range(x.shape[1])], 1)
+    cache = dict(cache)
+    return torch.cat([step(p, cfg, x[:, t : t + 1], cache) for t in range(x.shape[1])],
+                     1), cache
 
 
 def decode_logits(cfg, params: Transformer, cache: Cache, tokens) -> torch.Tensor:
@@ -354,5 +394,5 @@ def decode_logits(cfg, params: Transformer, cache: Cache, tokens) -> torch.Tenso
 
 def decode_step(cfg, params: Transformer, cache: Cache, tokens):
     """One greedy decode step. tokens (B, 1) -> (next (B, 1) int32, cache)."""
-    logits = decode_logits(cfg, params, cache, tokens)
+    logits = spmd.gather_dim(decode_logits(cfg, params, cache, tokens), -1)
     return torch.argmax(logits, dim=-1).to(torch.int32), cache

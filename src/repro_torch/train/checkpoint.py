@@ -19,6 +19,12 @@ is initialised, else 0.  Restore reads each leaf on the host and places
 it on ``device`` (else the device of the matching leaf of ``like``), so a
 checkpoint saved on the card restores on the CPU and the other way
 round.
+
+Sharded trees (DTensor leaves) are saved whole: every rank gathers each
+leaf (``full_tensor()``), rank 0 alone writes and commits, as one process
+of the reference does, and the others wait for the commit.  On restore a
+DTensor leaf of ``like`` takes its value laid out as that leaf is — on
+whatever mesh the run now has (the reference's elastic restore).
 """
 
 from __future__ import annotations
@@ -56,14 +62,34 @@ def _process_index() -> int:
     return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
 def save(ckpt_dir: str, step: int, tree: dict) -> str:
-    proc = _process_index()
     final = os.path.join(ckpt_dir, f"step_{step:09d}")
+    if any(_is_dtensor(leaf) for _, leaf in _flatten(tree)):
+        # every rank takes part in each leaf's gather; rank 0 writes
+        pairs = ((n, leaf.full_tensor() if _is_dtensor(leaf) else leaf)
+                 for n, leaf in _flatten(tree))
+        if _process_index() == 0:
+            _write(final, 0, step, pairs)
+        else:
+            for _ in pairs:
+                pass
+        torch.distributed.barrier()
+        return final
+    return _write(final, _process_index(), step, _flatten(tree))
+
+
+def _write(final: str, proc: int, step: int, pairs) -> str:
     tmp = final + f".tmp{proc}"
     os.makedirs(tmp, exist_ok=True)
 
     manifest = {"step": step, "leaves": []}
-    for i, (name, leaf) in enumerate(_flatten(tree)):
+    for i, (name, leaf) in enumerate(pairs):
         t = leaf.detach().cpu()
         fname = f"proc{proc:02d}_leaf{i:04d}.npy"
         if t.dtype == torch.bfloat16:  # np.save has no bf16: a uint16 view
@@ -98,6 +124,21 @@ def latest_step(ckpt_dir: str) -> int | None:
     return max(steps) if steps else None
 
 
+def _shard_like(t: torch.Tensor, like):
+    """The host tensor ``t`` as a DTensor of ``like``'s mesh and
+    placements: this rank's shard is sliced on the host and copied alone
+    onto ``like``'s device, so no rank holds the whole leaf there."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh, placements = like.device_mesh, like.placements
+    shape, offset = compute_local_shape_and_global_offset(t.shape, mesh, placements)
+    rows = t[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+    local = torch.empty(shape, dtype=t.dtype, device=like.to_local().device).copy_(rows)
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=like.shape, stride=like.stride())
+
+
 def restore(ckpt_dir: str, step: int, like: dict, device=None) -> dict:
     """A new tree of ``like``'s structure holding the checkpoint's leaves,
     on ``device`` (else each leaf of ``like``'s device); a leaf whose
@@ -120,5 +161,9 @@ def restore(ckpt_dir: str, step: int, like: dict, device=None) -> dict:
             t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
         else:
             t = torch.from_numpy(arr)
-        out.append((name, t.to(device if device is not None else leaf.device)))
+        if _is_dtensor(leaf):
+            t = _shard_like(t, leaf)
+        else:
+            t = t.to(device if device is not None else leaf.device)
+        out.append((name, t))
     return _unflatten(out)

@@ -16,6 +16,12 @@ or a module; the state is ``{"step", "m", "v"}``, ``m`` and ``v`` keyed by
 the same names, ``step`` a 0-d int32 tensor.  Gradient clipping is by
 global norm; the gradients come in bf16 (``train_loop`` rounds them) and
 are taken up to f32 here.
+
+On DTensors (a sharded step) the parameters, ``m``, ``v`` and the
+gradients share each leaf's layout, and the update runs on the local
+shards.  The global norm sums every rank's local squares, each weighed
+by 1 / (the ranks holding a copy of that shard), in one all-reduce over
+the mesh, so every rank clips by the same scale.
 """
 
 from __future__ import annotations
@@ -70,12 +76,35 @@ def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
     return cfg.lr * torch.minimum(warm, cos)
 
 
+def _local(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (a view: in-place writes land in it)."""
+    from repro_torch.sharding import spmd
+
+    return x.to_local() if spmd.is_dtensor(x) else x
+
+
 def global_norm(grads: dict) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's f32 sum of squares."""
-    total = None
+    """sqrt of the sum over leaves of each leaf's f32 sum of squares; of
+    DTensor gradients (in ``Shard``/``Replicate`` layouts), a plain
+    tensor every rank agrees on."""
+    from repro_torch.sharding import spmd
+
+    total, mesh = None, None
     for g in grads.values():
-        sq = torch.sum(torch.square(g.float()))
+        sq = torch.sum(torch.square(_local(g).float()))
+        if spmd.is_dtensor(g):
+            mesh = g.device_mesh
+            copies = 1
+            for i, pl in enumerate(g.placements):
+                copies *= 1 if pl.is_shard() else mesh.size(i)
+            if copies > 1:
+                sq = sq / copies
         total = sq if total is None else total + sq
+    if mesh is not None:
+        from torch.distributed.tensor import DTensor, Partial
+
+        total = DTensor.from_local(
+            total, mesh, [Partial()] * mesh.ndim, run_check=False).full_tensor()
     return torch.sqrt(total)
 
 
@@ -85,7 +114,7 @@ def apply_updates(cfg: AdamWConfig, params, grads: dict, state: dict):
     ``state["v"]`` are updated leaf by leaf, then ``state["step"]``.
     Returns ``(params, state, {"grad_norm", "lr"})``."""
     leaves = named(params)
-    dev = next(iter(leaves.values())).device
+    dev = _local(next(iter(leaves.values()))).device
     step = state["step"].cpu() + 1
     gnorm = global_norm(grads)
     scale = torch.clamp_max(cfg.clip_norm / (gnorm + 1e-9), 1.0)
@@ -97,8 +126,8 @@ def apply_updates(cfg: AdamWConfig, params, grads: dict, state: dict):
     lr_dev = lr.to(dev)
 
     for name, p in leaves.items():
-        m, v = state["m"][name], state["v"][name]
-        g = grads[name].to(torch.float32, copy=True).mul_(scale)
+        p, m, v = _local(p), _local(state["m"][name]), _local(state["v"][name])
+        g = _local(grads[name]).to(torch.float32, copy=True).mul_(scale)
         t = torch.mul(g, 1 - b1)
         m.mul_(b1).add_(t)  # m2 = b1 * m + (1 - b1) * g
         torch.mul(g, 1 - b2, out=t).mul_(g)

@@ -325,7 +325,7 @@ def test_data_mesh_contract_in_one_process():
     assert mesh.all_gather_ints([3, 4]).tolist() == [[3, 4]]
     with pytest.raises(ValueError, match="requested 2 devices"):
         tmesh.make_data_mesh(2, device="cpu")
-    with pytest.raises(NotImplementedError, match="1-D"):
+    with pytest.raises(ValueError, match=r"needs 4 ranks, the process group has 1"):
         tmesh.make_mesh((2, 2), ("data", "model"), device="cpu")
     named = tmesh.make_mesh((1,), ("rows",), device="cpu")
     assert named.shape == {"rows": 1}

@@ -108,12 +108,13 @@ def test_cuda_requested_without_a_card_raises(tmp_path_factory, tmp_path):
 
 
 def test_unported_features_raise(tmp_path_factory, tmp_path):
-    """Meshes of more than one axis (the LM substrate's) are not ported
-    yet.  The mesh executor is (see tests/test_torch_mesh_executor.py):
+    """A mesh of more than one axis (the LM step's ``DeviceMesh``) needs
+    as many ranks as its shape holds: a process without a process group
+    is refused.  The mesh executor (see tests/test_torch_mesh_executor.py):
     ``sort_file`` under it writes the reference's bytes."""
     from repro_torch.launch.mesh import make_mesh
 
-    with pytest.raises(NotImplementedError, match="1-D"):
+    with pytest.raises(ValueError, match=r"needs 256 ranks, the process group has 1"):
         make_mesh((16, 16), ("data", "model"), device="cpu")
     inp, _, jsha = _reference(tmp_path_factory, "uniform", "coalesced")
     out = str(tmp_path / "o.bin")

@@ -5,7 +5,8 @@ microbatched step agrees with the full one, resume replays the
 uninterrupted run) on the port; the port's launcher against the
 reference's ``train`` from the same parameters; one step of every arch;
 the bf16 gradients; serving records no autograd graph; and the launcher
-refuses to fall back to the host or to take a mesh it cannot run.
+refuses to fall back to the host or to take a mesh larger than its
+world.
 
 Tolerances: the launcher's losses against the reference's
 ``rtol=2e-2`` (the reference's resume tolerance; measured 7.1e-4 on
@@ -190,7 +191,10 @@ def test_train_without_a_card_raises(monkeypatch):
 
 @pytest.mark.parametrize("shape", [(2,), (1, 2), (4, 4)])
 def test_train_refuses_a_mesh(shape):
-    with pytest.raises(NotImplementedError, match="item 4e"):
+    """Without a process group the world size is 1: a mesh of more ranks
+    is refused, naming both numbers."""
+    n = int(np.prod(shape))
+    with pytest.raises(ValueError, match=rf"holds {n} ranks, the world size is 1"):
         ttrain.train("qwen3-4b", steps=1, mesh_shape=shape, device="cpu")
 
 
