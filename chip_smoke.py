@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path, its serving paths and its LM
-training path on one CUDA card and check them.
+"""Drive the PyTorch port's main path, its serving paths, its LM
+training path and its examples on one CUDA card and check them.
 
 Run from the repository root, with no arguments:
 
@@ -148,15 +148,28 @@ Phases, one line each (any failure exits non-zero):
    ``launch.train.train`` at smoke size on that mesh, stopped at step 2
    with a checkpoint, resumed on it and on one rank (no process group):
    the uninterrupted losses within 2e-2.  (c) ``launch.dryrun`` of
-   qwen3-4b ``train_4k`` and mixtral-8x7b ``decode_32k`` on the 16 x 16
+   qwen3-4b ``train_4k``, mixtral-8x7b ``decode_32k`` and xlstm-350m
+   ``train_4k`` (its recurrence counted one step for all) on the 16 x 16
    fake mesh, each in a subprocess beside (a) and (b), its record and
    seconds logged.  (d) The four sorter kernels launch 0 times in this
    phase: ``launches_mesh`` sums the counts each rank reads over its own
    (a) and (b); this process's (the plain reference step, the one-rank
    resume) must be 0 too.
+14. examples (after phase 13) — each ``examples/torch_*.py`` run as a
+   user runs it, in a subprocess with ``--device cuda``, the four at
+   once: the quickstart at 500,000 skewed records with 2 readers (its
+   output validated and equal byte for byte to the host executor's
+   sort of the same input,
+   the encode, RMI and row-sort kernels launched on its path:
+   ``launches_quickstart``); the distributed demo at 2**18 records over
+   four gloo ranks sharing the card (phase 10's transport; the global
+   order ``np.lexsort``'s, nothing lost, RMI launched on every rank);
+   serving (finite logits, the same tokens twice) and training at
+   ``--tiny`` (the loss falls).  A failing example fails the run.
 
 It then prints one JSON line describing each kernel (the LM phases'
-launches under ``launches_lm``, ``launches_train`` and ``launches_mesh``) (times from CUDA
+launches under ``launches_lm``, ``launches_train`` and ``launches_mesh``,
+the quickstart's under ``launches_quickstart``) (times from CUDA
 events, bounds from the bytes each call must move at 3.35 TB/s or its
 operations at 67 TFLOP/s), the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -256,6 +269,13 @@ TRAIN_A_STEPS, TRAIN_A_BATCH, TRAIN_A_SEQ = 6, 2, 1024
 TRAIN_B_STEPS, TRAIN_B_SEQ = 4, 4608
 TRAIN_LR = 3e-4
 TRAIN_GRAD_TOL, TRAIN_GRAD_FLOOR, TRAIN_UPDATE_TOL, TRAIN_RESUME_RTOL = 0.05, 1e-3, 0.35, 2e-2
+# the examples phase: each examples/torch_*.py as a user runs it, on the
+# card: the quickstart at its default 500,000 records with 2 readers, the
+# demo at its default 2**18 records over phase 10's transport (gloo ranks
+# sharing the card), serving at its default size, training at --tiny
+EX_QUICK_RECORDS, EX_QUICK_READERS = 500_000, 2
+EX_DEMO_RECORDS, EX_DEMO_RANKS = 1 << 18, DIST_RANKS
+EX_TIMEOUT_S = 300
 
 
 def log(msg: str) -> None:
@@ -2097,7 +2117,9 @@ def phase_train(torch, results: dict) -> None:
 # reference's microbatch check (dd < 0.35 d1) on MESH_LEAVES.  (b)
 # launch.train at smoke size on the same ranks, stopped at step 2, resumed
 # on (world, 1) and on one rank: the uninterrupted losses within 2e-2.
-# (c) two dry-run cells in subprocesses, beside (a) and (b).
+# (c) three dry-run cells in subprocesses, beside (a) and (b): xlstm-350m
+# train_4k (its sLSTM loop counted one step for all, models/recurrence.py)
+# traced in 50.5 s on the card machine's CPU.
 # Several gloo ranks sharing the card cannot carry DTensor: plain gloo
 # collectives on CUDA tensors run, but DTensor's first redistribution on a
 # 2 x 2 mesh ends the process with SIGSEGV (experiments/gloo_cuda_probe.py),
@@ -2110,7 +2132,8 @@ MESH_SHAPE, MESH_LAYERS, MESH_STEPS, MESH_BATCH, MESH_SEQ = (1, 1), 36, 4, 2, 10
 MESH_BACKEND = "nccl"
 MESH_LOSS_TOL = 1e-2
 MESH_LEAVES = ("embed", "layers.0.00_attn.wq", "layers.3.01_mlp.w_down", "final_norm")
-MESH_DRYRUN = (("qwen3-4b", "train_4k"), ("mixtral-8x7b", "decode_32k"))
+MESH_DRYRUN = (("qwen3-4b", "train_4k"), ("mixtral-8x7b", "decode_32k"),
+               ("xlstm-350m", "train_4k"))
 
 
 def _mesh_cfg():
@@ -2332,6 +2355,91 @@ def phase_mesh(torch, results: dict) -> None:
     log(f"mesh: phase {time.perf_counter() - t0:.1f} s")
 
 
+def start_example(name: str, *args: str) -> tuple:
+    """``examples/<name> *args --device cuda`` started in a subprocess."""
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "examples", name), *args, "--device", "cuda"],
+        env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return name, time.perf_counter(), proc
+
+
+def example_result(started: tuple) -> tuple[dict, float]:
+    """A started example's last JSON line and its seconds; a non-zero
+    exit or a run past EX_TIMEOUT_S fails the phase."""
+    name, t0, proc = started
+    try:
+        out, err = proc.communicate(timeout=EX_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    secs = time.perf_counter() - t0
+    require(proc.returncode == 0,
+            f"examples: {name} exited {proc.returncode}: {err[-3000:]}")
+    line = [s for s in out.splitlines() if s.startswith("{")][-1]
+    return json.loads(line), secs
+
+
+def phase_examples(torch, results: dict) -> None:
+    """14. Each ``examples/torch_*.py`` on the card, all four at once
+    (see the module docstring)."""
+    from repro_torch.core import external, validate
+    from repro_torch.core.config import SortConfig
+    from repro_torch.data import gensort
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as tmp:
+        started = [
+            start_example("torch_quickstart.py", str(EX_QUICK_RECORDS),
+                          str(EX_QUICK_READERS), "--workdir", tmp),
+            start_example("torch_distributed_sort_demo.py", "--records",
+                          str(EX_DEMO_RECORDS), "--ranks", str(EX_DEMO_RANKS)),
+            start_example("torch_serve_lm.py"),
+            start_example("torch_train_lm.py", "--tiny"),
+        ]
+        try:
+            (q, q_s), (d, d_s), (sv, sv_s), (tr, tr_s) = (example_result(e) for e in started)
+        finally:
+            for _, _, proc in started:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        chk = checksum_file(validate, gensort, q["input"])
+        require(q["ok"] and validate.validate_file(q["output"], chk, EX_QUICK_RECORDS)["ok"],
+                f"examples: the quickstart's output failed validation: {q}")
+        host = os.path.join(tmp, "host.sorted")
+        external.sort_file(q["input"], host, config=SortConfig(
+            memory_budget_bytes=64 << 20, executor="host"))
+        host_sha = sha256(host)
+        require(q["sha256"] == host_sha,
+                f"examples: quickstart bytes {q['sha256']} != host executor's {host_sha}")
+        require(q["executor"] == "batched", f"examples: quickstart executor {q['executor']}")
+        for name in ("encode_keys", "rmi_bucket", "sort_rows"):
+            require(q["launches"][name] > 0,
+                    f"examples: {name} was never launched on the quickstart path")
+    for key, name in (("encode", "encode_keys"), ("rmi_bucket", "rmi_bucket"),
+                      ("sort_rows", "sort_rows"), ("histogram", "bucket_histogram")):
+        results[key]["launches_quickstart"] = q["launches"][name]
+    log(f"examples: torch_quickstart.py {EX_QUICK_RECORDS} {EX_QUICK_READERS}: validated, "
+        f"sha256 == host executor's {host_sha}, executor {q['executor']}, sort "
+        f"{q['seconds']:.3f} s, launches {q['launches']}; {q_s:.1f} s in all")
+    require(d["ok"] and d["lost"] == 0 and sum(d["n_valid"]) == EX_DEMO_RECORDS
+            and all(r["rmi_bucket"] > 0 for r in d["launches"]),
+            f"examples: the distributed demo: {d}")
+    log(f"examples: torch_distributed_sort_demo.py --records {EX_DEMO_RECORDS} --ranks "
+        f"{EX_DEMO_RANKS} (gloo on {sorted(set(d['devices']))}): order == np.lexsort, "
+        f"lost 0, per-rank load {d['n_valid']}, launches by rank {d['launches']}; "
+        f"{d_s:.1f} s in all")
+    require(sv["logits_finite"] and sv["repeatable"], f"examples: serving: {sv}")
+    log(f"examples: torch_serve_lm.py: {sv['shape']} tokens, logits finite, "
+        f"{sv['tokens_per_s']:.0f} tokens/s warm; {sv_s:.1f} s in all")
+    require(tr["last_loss"] < tr["first_loss"], f"examples: training: {tr}")
+    log(f"examples: torch_train_lm.py --tiny: {tr['steps']} steps, loss "
+        f"{tr['first_loss']:.4f} -> {tr['last_loss']:.4f}; {tr_s:.1f} s in all")
+    log(f"examples: phase {time.perf_counter() - t0:.1f} s (the four at once)")
+
+
 def checksum_file(validate, gensort, path: str) -> int:
     """validate.checksum over the whole file, summed chunk by chunk (the
     checksum is a sum of per-record hashes mod 2**64)."""
@@ -2527,11 +2635,13 @@ def main() -> int:
     phase_train(torch, results)
     # 13. the sharded LM step
     phase_mesh(torch, results)
+    # 14. the examples
+    phase_examples(torch, results)
     log(f"smoke: every phase ok in {time.perf_counter() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_distributed", "launches_lm", "launches_train", "launches_mesh",
-            "max_abs_err",
+            "launches_quickstart", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{k: results[n][k] for k in keys}
                for n in ("encode", "rmi_bucket", "sort_rows", "histogram")]

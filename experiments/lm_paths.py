@@ -4,7 +4,8 @@ CUDA card: ``a`` qwen3-4b, ``b`` 2-layer mixtral, ``d`` one period of
 jamba, ``e`` xlstm-350m, ``f`` whisper-medium, ``c`` the ten archs at
 smoke size card against host; each under ``torch.inference_mode()``, as
 phase 11 serves.  ``train``: the LM training phase (phase 12) whole;
-``mesh``: the sharded LM step's phase (phase 13) whole.
+``mesh``: the sharded LM step's phase (phase 13) whole; ``examples``: the
+examples phase (phase 14) whole.
 
 - ``--measure``: the served-vs-forward tolerances of the paths run are
   lifted, so that ``lm_check`` logs the drift and judges nothing; how
@@ -26,6 +27,7 @@ Run from the repository root:
     python3 experiments/lm_paths.py b d e f [--measure] [--sums] [--parent DIR]
     python3 experiments/lm_paths.py train
     python3 experiments/lm_paths.py mesh
+    python3 experiments/lm_paths.py examples
 """
 
 import importlib.util
@@ -117,6 +119,9 @@ def main() -> int:
     if "mesh" in args:
         cs.phase_mesh(torch, {k: {} for k in ("encode", "rmi_bucket", "sort_rows",
                                               "histogram")})
+    if "examples" in args:
+        cs.phase_examples(torch, {k: {} for k in ("encode", "rmi_bucket", "sort_rows",
+                                                  "histogram")})
     cs.log(f"lm_paths: {time.perf_counter() - t0:.1f} s")
     return 0
 

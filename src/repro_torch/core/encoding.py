@@ -9,7 +9,8 @@ PyTorch on the CPU implements neither ``<<`` nor ``-`` nor ``<`` for
 values lie in ``[0, 2**32)`` and compare, subtract and shift as the
 unsigned words do.  ``SENTINEL`` (``0xFFFFFFFF``) still sorts after every
 real key.  The NumPy functions (``encode_np``, ``feature_f64_np``,
-``ascii_digits``) are copies of the reference's.
+``ascii_digits``) and the base-95 oracle (``encode_base95_u64``) are
+copies of the reference's.
 """
 
 from __future__ import annotations
@@ -78,6 +79,21 @@ def encode_np(keys: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     hi = (k[:, 0] << 24) | (k[:, 1] << 16) | (k[:, 2] << 8) | k[:, 3]
     lo = (k[:, 4] << 24) | (k[:, 5] << 16) | (k[:, 6] << 8) | k[:, 7]
     return hi, lo
+
+
+def encode_base95_u64(key: bytes, length: int = 9) -> int:
+    """The paper's exact base-95 encoding (§4), as a Python big-int oracle
+    (copy of ``src/repro/core/encoding.py:77``).
+
+    ``sum_i (ASCII(x_i) - 32) * 95**(l - i)`` over the first ``length`` bytes.
+    Characters below 32 are clamped to 0 (the paper ignores control codes).
+    """
+    value = 0
+    for i in range(length):
+        c = key[i] if i < len(key) else 0
+        digit = max(0, c - 32)
+        value = value * 95 + digit
+    return value
 
 
 def feature_f32(

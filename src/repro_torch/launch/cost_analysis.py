@@ -22,12 +22,20 @@ counts every aten op as it is dispatched:
                   the temp memory beside the call's arguments.
 
 Python loops (layers, microbatches, attention blocks) run unrolled, so
-every count is exact by construction: there are no trip counts to
-multiply.  On DTensors the mode steps aside for DTensor's own dispatch
-and counts the ops DTensor runs on the local shards and the collectives
-it issues: the counts are per device, as the reference's are after SPMD
-partitioning (a mode above DTensor, such as ``FlopCounterMode``, would
-count each op at its global shape).  DTensor's own shape propagation,
+their counts are exact by construction.  A recurrence over a sequence
+(``models/recurrence.scan``: the sLSTM loop over time, the token by
+token prefill) is the exception, as the reference's ``lax.scan`` is:
+under the mode its first step runs as it is (its initial state needs
+no gradient), then one step runs and counts, with its backward and its
+remat recompute, for the other n - 1 (:meth:`CostMode.scan_step`), as
+the reference's ``_multipliers`` do.  At 4,096 or 32,768 steps a layer
+the unrolled trace takes hours; at 16 steps the two agree exactly in
+FLOPs and collectives (``tests/test_torch_recurrence.py``).  On
+DTensors the mode steps aside for DTensor's own dispatch and counts the
+ops DTensor runs on the local shards and the collectives it issues: the
+counts are per device, as the reference's are after SPMD partitioning
+(a mode above DTensor, such as ``FlopCounterMode``, would count each op
+at its global shape).  DTensor's own shape propagation,
 which runs each new op once at its global shape on fake tensors, is not
 counted.
 """
@@ -41,6 +49,8 @@ from collections import defaultdict
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro_torch.models import recurrence
 
 _COLL = {
     "all_gather_into_tensor": "all-gather",
@@ -132,6 +142,8 @@ class CostMode(TorchDispatchMode):
         self.cost = Cost()
         self._hidden = 0
         self._live = 0
+        self.mult = 1  # each op counts this many times (a scaled step's)
+        self._made = None  # weakrefs of the tensors a scaled step makes
 
     def __enter__(self):
         from torch.distributed.tensor._sharding_prop import ShardingPropagator
@@ -146,13 +158,15 @@ class CostMode(TorchDispatchMode):
             finally:
                 mode._hidden -= 1
 
-        self._restore = (ShardingPropagator, meta)
+        self._restore = (ShardingPropagator, meta, recurrence.counter)
         ShardingPropagator._propagate_tensor_meta_non_cached = propagate
+        recurrence.counter = self
         return super().__enter__()
 
     def __exit__(self, *exc):
-        cls, meta = self._restore
+        cls, meta, outer = self._restore
         cls._propagate_tensor_meta_non_cached = meta
+        recurrence.counter = outer
         return super().__exit__(*exc)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -178,29 +192,148 @@ class CostMode(TorchDispatchMode):
             nb = _nbytes(t)
             self._live += nb
             weakref.finalize(t, self._free, nb)
+            if self._made is not None:
+                self._made.append(weakref.ref(t))
+        self.cost.peak_bytes = max(self.cost.peak_bytes, self._live)
+
+    def _extra_live(self, nbytes: int) -> None:
+        self._live += nbytes
         self.cost.peak_bytes = max(self.cost.peak_bytes, self._live)
 
     def _count(self, func, args, kwargs, out) -> None:
         self._hold(func, args, kwargs, out)
         name = func._schema.name.split("::")[-1]
         ns = func.namespace
-        c = self.cost
+        c, m = self.cost, self.mult
         if ns in ("_c10d_functional", "c10d") and name in _COLL:
             rec = c.collectives[_COLL[name]]
-            rec["count"] += 1
-            rec["result_bytes"] += sum(_nbytes(t) for t in _tensors(out))
+            rec["count"] += m
+            rec["result_bytes"] += m * sum(_nbytes(t) for t in _tensors(out))
             rec["max_group"] = max(rec["max_group"], _group_size(args, kwargs))
             return
         if name in _FREE or func.is_view:
             return
         tensors = _tensors((args, kwargs, out))
-        flops = _dot_flops(name, args, out)
-        nbytes = sum(_nbytes(t) for t in tensors)
+        self._add(name, func._overloadname, m * sum(_nbytes(t) for t in tensors),
+                  m * _dot_flops(name, args, out))
+
+    def _add(self, name: str, overload: str, nbytes: float, flops: float) -> None:
+        c = self.cost
         c.dot_flops += flops
         c.hbm_bytes += nbytes
-        rec = c.by_op[(name, func._overloadname)]
+        rec = c.by_op[(name, overload)]
         rec[0] += nbytes
         rec[1] += flops
+
+    # -- one step of a recurrence, counted for ``n`` ------------------------
+
+    def scan_step(self, n: int, fn, carry):
+        """``fn(carry)`` — one step of a recurrence, ``(carry, y)`` — run
+        once and counted as ``n`` runs of it, the reference's trip-count
+        multiplier over a ``lax.scan`` body:
+
+        * its ops (FLOPs, bytes, collectives) count ``n`` times, and so
+          does a remat recompute of it, which runs this again;
+        * under autograd, the backward of every graph node it made counts
+          ``n`` times (node pre- and post-hooks scale ``mult`` around the
+          node), plus the ``n - 1`` gradient additions that ``n`` steps
+          would make into each tensor from outside the step other than
+          the carry (whose gradient goes to the step before);
+        * each tensor it made that outlives it (the residuals autograd
+          keeps for the backward) holds ``n - 1`` more copies of its
+          bytes in ``peak_bytes`` for as long as it lives.
+
+        The step's temporaries live once, as they would in a loop."""
+        skip = {t.grad_fn for t in _tensors(carry) if t.grad_fn is not None}
+        seq0 = _sequence_nr()
+        made, self._made = self._made, []
+        self.mult *= n
+        try:
+            out = fn(carry)
+        finally:
+            self.mult //= n
+            made, self._made = self._made, made
+        if self._made is not None:
+            self._made.extend(made)
+        outs = _tensors(out)
+        keep = {id(t) for t in outs} | {id(t._base) for t in outs if t._base is not None}
+        for ref in made:
+            t = ref()
+            if t is not None and id(t) not in keep:  # a residual
+                extra = (n - 1) * _nbytes(t)
+                self._extra_live(extra)
+                weakref.finalize(t, self._free, extra)
+        if torch.is_grad_enabled():
+            self._scale_backward(outs, seq0, _sequence_nr(), n, skip)
+        return out
+
+    def _scale_backward(self, outs, seq0: int, seq1: int, n: int, skip) -> None:
+        """Hooks on the autograd nodes made between sequence numbers
+        ``seq0`` and ``seq1`` that ``outs`` reach: each counts ``n``
+        times when the backward pass runs it.  Gradients into ``skip``
+        (the carry's nodes) are not summed over steps."""
+        todo = [t.grad_fn for t in outs if t.grad_fn is not None]
+        seen, inside = set(), []
+        while todo:
+            node = todo.pop()
+            if node in seen:
+                continue
+            seen.add(node)
+            if seq0 <= node._sequence_nr() < seq1:
+                inside.append(node)
+                todo.extend(f for f, _ in node.next_functions if f is not None)
+        members = set(inside)
+
+        def pre(grad_outputs):
+            self.mult *= n
+
+        def post_for(edges):
+            def post(grad_inputs, grad_outputs):
+                self.mult //= n
+                # n steps would add n gradients into each outside input
+                for i in edges:
+                    g = grad_inputs[i]
+                    if g is not None:
+                        self._add("add", "Tensor", self.mult * (n - 1) * 3 * _nbytes(g), 0.0)
+            return post
+
+        for node in inside:
+            edges = [i for i, (f, _) in enumerate(node.next_functions)
+                     if f is not None and f not in members and f not in skip]
+            node.register_prehook(pre)
+            node.register_hook(post_for(edges))
+
+    def stack_steps(self, y0: torch.Tensor, y: torch.Tensor, n: int, dim: int,
+                    keepdim: bool) -> torch.Tensor:
+        """The first step's output ``y0`` and a scaled step's ``y`` (for
+        the other ``n - 1``) as the stack (``keepdim``: the
+        concatenation) of ``n`` outputs along ``dim``: the copy counted
+        as the loop's stack, the other ``n - 2`` outputs held for it; its
+        backward hands each its slice, a view, as the stack's does."""
+        extra = (n - 2) * _nbytes(y)
+        self._extra_live(extra)
+        try:
+            return _Steps.apply(y0, y, n, dim, keepdim)
+        finally:
+            self._free(extra)
+
+
+def _sequence_nr() -> int:
+    """The sequence number autograd gives the next node it makes."""
+    return torch._C._autograd._get_sequence_nr()
+
+
+class _Steps(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y0, y, n, dim, keepdim):
+        ctx.dim, ctx.keepdim = dim, keepdim
+        return (torch.cat if keepdim else torch.stack)([y0] + [y] * (n - 1), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.keepdim:
+            return g.narrow(ctx.dim, 0, 1), g.narrow(ctx.dim, 1, 1), None, None, None
+        return g.select(ctx.dim, 0), g.select(ctx.dim, 1), None, None, None
 
 
 def _is_fake(t) -> bool:

@@ -17,11 +17,13 @@ reference's ``shard_map`` ``_cache_update``): each sequence shard checks
 which of the new tokens fall in its range and writes them locally, so
 the write moves no cache bytes.  With ``REPRO_OPT_SHARDING`` the queries'
 heads are pinned to the "model" axis, as the reference's constraint
-pins them.  The blockwise attention runs in a ``local_map`` over batch
-shards (and, in opt mode, head shards over "model": the reference's
-constraints on its blocks and carries), where DTensor's propagation of
-its batched products fails.  Without a mesh every one of these is the
-identity.
+pins them.  The attention products run in a ``local_map`` over batch
+shards (and, in opt mode, the query heads over "model" wherever H
+divides it, each rank with the kv heads its query heads read: the
+reference's constraints on its blocks and carries), where DTensor's
+propagation of its batched products fails.  In opt mode the blockwise
+attention also takes the reference's opt-mode blocks and bf16
+probabilities.  Without a mesh every one of these is the identity.
 """
 
 from __future__ import annotations
@@ -38,6 +40,9 @@ NEG_INF = -1e9
 CHUNK_THRESHOLD = 2048
 Q_BLOCK = 512
 KV_BLOCK = 1024
+# REPRO_OPT_SHARDING: the reference's opt-mode blocks
+OPT_Q_BLOCK = 1024
+OPT_KV_BLOCK = 2048
 
 
 class Attention(nn.Module):
@@ -98,8 +103,8 @@ def _sdpa(q, k, v, mask, n_rep: int):
     DTensors in a ``local_map`` as :func:`_sdpa_chunked` runs (the mask
     then (1,Sq,Sk); a sequence-sharded cache is gathered whole for it)."""
     if spmd.is_dtensor(q):
-        return spmd.on_batch_heads(lambda a, b, c: _sdpa(a, b, c, mask, n_rep),
-                                   q, k, v, heads=rules.opt_sharding_enabled())
+        return spmd.on_batch_heads(lambda a, b, c, r: _sdpa(a, b, c, mask, r),
+                                   q, k, v, n_rep, heads=rules.opt_sharding_enabled())
     b, sq, h, hd = q.shape
     kv = k.shape[2]
     qg = q.reshape(b, sq, kv, n_rep, hd)
@@ -112,18 +117,21 @@ def _sdpa(q, k, v, mask, n_rep: int):
 
 def _sdpa_chunked(q, k, v, n_rep: int, *, causal: bool = True, window: int = 0):
     """:func:`_blockwise`; on DTensors in a ``local_map`` over the batch
-    shards — and, with ``REPRO_OPT_SHARDING``, the head shards over
-    "model" where the query and kv heads both divide it (the reference's
-    opt-mode constraints on the blocks and their carries): blocks of
+    shards — and, with ``REPRO_OPT_SHARDING``, the query heads over
+    "model" where H divides it, each rank with the kv heads its query
+    heads read (the reference's opt-mode constraints on the blocks and
+    their carries, which repeat kv to H heads block by block): blocks of
     different rows and heads never meet."""
+    opt = rules.opt_sharding_enabled()
     if not spmd.is_dtensor(q):
-        return _blockwise(q, k, v, n_rep, causal=causal, window=window)
+        return _blockwise(q, k, v, n_rep, causal=causal, window=window, opt=opt)
     return spmd.on_batch_heads(
-        lambda a, b, c: _blockwise(a, b, c, n_rep, causal=causal, window=window),
-        q, k, v, heads=rules.opt_sharding_enabled())
+        lambda a, b, c, r: _blockwise(a, b, c, r, causal=causal, window=window, opt=opt),
+        q, k, v, n_rep, heads=opt)
 
 
-def _blockwise(q, k, v, n_rep: int, *, causal: bool = True, window: int = 0):
+def _blockwise(q, k, v, n_rep: int, *, causal: bool = True, window: int = 0,
+               opt: bool = False):
     """Flash-style blockwise attention: O(S·block) memory instead of
     O(S²).
 
@@ -131,10 +139,14 @@ def _blockwise(q, k, v, n_rep: int, *, causal: bool = True, window: int = 0):
     (m, l, acc) softmax; causal/window masks are applied per block pair
     from absolute positions.
 
-    Blocks are the reference's ``Q_BLOCK`` x ``KV_BLOCK``.  Where they do
-    not divide a length, the reference halves them until they do (8-token
-    blocks at 2,600 tokens: ~53,000 block pairs, a Python loop of ~10^6
-    launches here); the port pads the last block instead, masks the
+    Blocks are the reference's ``Q_BLOCK`` x ``KV_BLOCK``; with ``opt``
+    (``REPRO_OPT_SHARDING``) its ``OPT_Q_BLOCK`` x ``OPT_KV_BLOCK``, and
+    the probabilities are rounded to and kept in bf16 between the
+    softmax and the product, m and l in f32, as its opt mode stores
+    them.  Where the blocks do not divide a length, the reference
+    halves them until they do (8-token blocks at 2,600 tokens: ~53,000
+    block pairs, a Python loop of ~10^6 launches here); the port pads
+    the last block instead, in both modes, masks the
     padded keys and drops the padded queries — the same softmax over the
     same keys, summed in other blocks.  A kv block that every query of
     the block masks is skipped: in the reference it contributes exactly
@@ -143,8 +155,8 @@ def _blockwise(q, k, v, n_rep: int, *, causal: bool = True, window: int = 0):
     """
     b, sq, h, hd = q.shape
     sk = k.shape[1]
-    qb = min(Q_BLOCK, sq)
-    kb = min(KV_BLOCK, sk)
+    qb = min(OPT_Q_BLOCK if opt else Q_BLOCK, sq)
+    kb = min(OPT_KV_BLOCK if opt else KV_BLOCK, sk)
     kv_len = sk
     if sk % kb:
         pad = k.new_zeros((b, -sk % kb, *k.shape[2:]))
@@ -184,6 +196,8 @@ def _blockwise(q, k, v, n_rep: int, *, causal: bool = True, window: int = 0):
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m_run - m_new)
             l_run = l_run * corr + p.sum(-1)
+            if opt:
+                p = p.to(torch.bfloat16)
             acc = acc * corr[..., None] + torch.einsum(
                 "bhqk,bkhd->bhqd", p.to(vr.dtype).float(), vr.float()
             )

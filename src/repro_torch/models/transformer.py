@@ -36,7 +36,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.executor import resolve_device
-from repro_torch.models import attention, layers, mamba, moe, xlstm
+from repro_torch.models import attention, layers, mamba, moe, recurrence, xlstm
 from repro_torch.sharding import spmd
 
 RECURRENT_KINDS = ("mamba", "mlstm", "slstm")
@@ -362,8 +362,8 @@ def _prefill_recurrent(kind: str, p, cfg, x, cache: dict):
     """Sequence forward of a recurrent sublayer that leaves its final
     state in ``cache``: mamba's chunked scan with ``return_state``; mLSTM
     and sLSTM step the recurrence token by token from the initial state,
-    as the reference does.  On DTensors each rank runs its rows of the
-    batch (``spmd.batch_local``)."""
+    as the reference does (``recurrence.scan``).  On DTensors each rank
+    runs its rows of the batch (``spmd.batch_local``)."""
     x = spmd.batch_layout(x)
     x, state = spmd.batch_local(lambda m, xx, c: _prefill_local(kind, m, cfg, xx, c),
                                 p, x, dict(cache))
@@ -376,9 +376,12 @@ def _prefill_local(kind: str, p, cfg, x, cache: dict):
     if kind == "mamba":
         return mamba.apply_mamba(p, cfg, x, return_state=True)
     step = xlstm.apply_mlstm if kind == "mlstm" else xlstm.apply_slstm
-    cache = dict(cache)
-    return torch.cat([step(p, cfg, x[:, t : t + 1], cache) for t in range(x.shape[1])],
-                     1), cache
+
+    def token(c, xt):
+        return c, step(p, cfg, xt, c)
+
+    cache, y = recurrence.scan(token, dict(cache), x, keepdim=True)
+    return y, cache
 
 
 def decode_logits(cfg, params: Transformer, cache: Cache, tokens) -> torch.Tensor:

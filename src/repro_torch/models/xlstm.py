@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.models import layers
+from repro_torch.models import layers, recurrence
 from repro_torch.models.mamba import _causal_conv
 
 M_INIT = -1e9  # the stabiliser's initial value
@@ -194,18 +194,20 @@ def _slstm_cell(p: SLSTM, cfg, xt, state: dict) -> dict:
 
 
 def apply_slstm(p: SLSTM, cfg, x, cache: dict | None = None):
-    """A loop over time from ``cache`` (updated in place) or, if None,
-    from the initial state."""
+    """A loop over time (``recurrence.scan``) from ``cache`` (updated in
+    place) or, if None, from the initial state."""
     xn = layers.rms_norm(x, p.norm, cfg.norm_eps)
     b, s = x.shape[0], x.shape[1]
     state = cache if cache is not None else init_slstm_cache(cfg, b, x.device)
-    hs = []
-    for t in range(s):
-        state = _slstm_cell(p, cfg, xn[:, t], state)
-        hs.append(state["h"])
+
+    def step(st, xt):
+        st = _slstm_cell(p, cfg, xt, st)
+        return st, st["h"]
+
+    state, hs = recurrence.scan(step, state, xn)
     if cache is not None:
         cache.update(state)
-    hseq = torch.stack(hs, 1).reshape(b, s, cfg.d_model).to(x.dtype)
+    hseq = hs.reshape(b, s, cfg.d_model).to(x.dtype)
     return x + hseq @ p.down.to(x.dtype)
 
 

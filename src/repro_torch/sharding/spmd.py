@@ -87,22 +87,56 @@ def _dtensor(t, mesh):
                                                       run_check=False)
 
 
-def on_batch_heads(fn, q, k, v, *, heads: bool):
-    """``fn(q, k, v)`` for attention tensors (B, S, H | K, hd) in a
-    ``local_map``: the batch over the batch axes where it divides them,
-    and with ``heads`` the head dims over "model" where both H and K
-    divide it; everything else replicated.  The output has ``q``'s
+def on_batch_heads(fn, q, k, v, n_rep: int, *, heads: bool):
+    """``fn(q, k, v, n_rep)`` for attention tensors (B, S, H | K, hd) in
+    a ``local_map``: the batch over the batch axes where it divides them,
+    and with ``heads`` q's heads over "model" where H divides it;
+    everything else replicated.  k and v's heads go over "model" beside
+    q's where K divides it too; where it does not, each rank keeps them
+    whole and hands ``fn`` the kv heads its own q heads read
+    (:func:`_own_kv_heads`), so that no rank computes another's heads;
+    their gradients are then each rank's share of the sum over "model"
+    (a partial sum there, which DTensor reduces).  The output has ``q``'s
     layout."""
     mesh = q.device_mesh
     pl = list(batch_placements(mesh, q.shape[0]))
+    kv_pl = list(pl)
+    own = None
     if heads and "model" in mesh.mesh_dim_names:
         i = mesh.mesh_dim_names.index("model")
-        if q.shape[2] % mesh.size(i) == 0 and k.shape[2] % mesh.size(i) == 0:
+        m = mesh.size(i)
+        if q.shape[2] % m == 0:
             pl[i] = Shard(2)
-    pl = tuple(pl)
-    return local_map(fn, out_placements=list(pl), in_placements=(pl, pl, pl),
+            if k.shape[2] % m == 0:
+                kv_pl[i] = Shard(2)
+            else:
+                own = i
+    kv_grad = tuple(Partial() if j == own else p for j, p in enumerate(kv_pl))
+    pl, kv_pl = tuple(pl), tuple(kv_pl)
+
+    def local(ql, kl, vl):
+        if own is None:
+            return fn(ql, kl, vl, n_rep)
+        return fn(ql, *_own_kv_heads(kl, vl, ql.shape[2], mesh.get_coordinate()[own], n_rep))
+
+    return local_map(local, out_placements=list(pl), in_placements=(pl, kv_pl, kv_pl),
+                     in_grad_placements=(pl, kv_grad, kv_grad),
                      device_mesh=mesh, redistribute_inputs=True)(
         q, _dtensor(k, mesh), _dtensor(v, mesh))
+
+
+def _own_kv_heads(k, v, h_local: int, r: int, n_rep: int):
+    """``(k, v, n_rep)`` for model rank ``r``'s ``h_local`` query heads
+    ``r * h_local ..``, from k and v with every kv head: query head ``j``
+    reads kv head ``j // n_rep``.  The heads it reads are sliced (a view)
+    with the query heads a kv head serves as the new ``n_rep``; a split
+    with unequal shares repeats them, one a query head."""
+    idx = [(r * h_local + j) // n_rep for j in range(h_local)]
+    lo, cnt = idx[0], idx[-1] - idx[0] + 1
+    if h_local % cnt == 0 and idx == [lo + j // (h_local // cnt) for j in range(h_local)]:
+        return k[:, :, lo:lo + cnt], v[:, :, lo:lo + cnt], h_local // cnt
+    sel = torch.tensor(idx, device=k.device)
+    return k.index_select(2, sel), v.index_select(2, sel), 1
 
 
 def batch_layout(x):

@@ -1,12 +1,14 @@
 """The port's dry run (``repro_torch.launch.dryrun.run_cell``) on a
 ``(2, 2)`` fake process group at smoke size: one dense arch (qwen3-4b),
-one MoE (mixtral-8x7b), the hybrid (jamba: Mamba + MoE) and the
-encoder-decoder (whisper-medium), each through its train step (8
+one MoE (mixtral-8x7b), the hybrid (jamba: Mamba + MoE), the
+encoder-decoder (whisper-medium) and the recurrent xlstm-350m (its
+sLSTM loop and token-by-token prefill counted one step for all,
+``models/recurrence.scan``), each through its train step (8
 microbatches), prefill and decode step, at small shapes named as the
 registry's.  Every cell is ``"status": "ok"`` with the reference's keys
 (``tests``' view of ``src/repro/launch/dryrun.py``), positive FLOPs and
 bytes, and CUDA is never initialised.  The fake process group is global
-to its process, so each arch runs in a subprocess of its own (all four
+to its process, so each arch runs in a subprocess of its own (all five
 at once).  Plus the cells the reference skips, skipped, and the CLI's
 rerun skipping the cells already written."""
 
@@ -20,7 +22,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
-ARCHS = ["qwen3-4b", "mixtral-8x7b", "jamba-v0.1-52b", "whisper-medium"]
+ARCHS = ["qwen3-4b", "mixtral-8x7b", "jamba-v0.1-52b", "whisper-medium", "xlstm-350m"]
 KEYS = {"arch", "shape", "mesh", "status", "n_chips", "trace_s", "flops_per_device",
         "bytes_accessed_per_device", "collectives", "memory"}
 MEMORY = {"argument_bytes", "output_bytes", "temp_bytes", "alias_bytes"}
@@ -80,7 +82,8 @@ def test_cells_trace_with_the_reference_keys(cells, arch):
         if cell["shape"] == "train_4k":  # parameters and state updated in place
             assert 0 < mem["alias_bytes"] <= mem["argument_bytes"]
     skipped = [c["shape"] for c in res["cells"] if c["status"] == "skipped"]
-    assert skipped == ([] if arch in ("mixtral-8x7b", "jamba-v0.1-52b") else ["long_500k"])
+    assert skipped == ([] if arch in ("mixtral-8x7b", "jamba-v0.1-52b", "xlstm-350m")
+                       else ["long_500k"])
 
 
 def test_cli_skips_what_is_written(tmp_path):

@@ -1,5 +1,6 @@
 """Port parity: ``repro_torch.core.encoding`` against ``repro.core.encoding``
-(bit-equal words and features on the ``test_encode_kernel_sweep`` grid)."""
+(bit-equal words and features on the ``test_encode_kernel_sweep`` grid;
+the base-95 oracle equal, and ``packed_key`` in its order)."""
 
 import numpy as np
 import pytest
@@ -90,3 +91,32 @@ def test_ascii_digits_and_constants():
         tenc.ascii_digits(np.array([10**10]), 10)
     assert tenc.ENCODED_BYTES == jenc.ENCODED_BYTES
     assert tenc.SENTINEL == int(jenc.SENTINEL)
+
+
+@pytest.mark.parametrize("alphabet", [(0, 256), (32, 127), (65, 68)])
+def test_base95_oracle_equal_and_packed_key_in_its_order(alphabet):
+    """``encode_base95_u64`` equals the reference's on seeded keys of 1 to
+    12 bytes (control codes clamped, short keys zero-padded).  On
+    printable keys of 8 bytes or more (the paper's ASCII records)
+    ``packed_key(hi, lo)`` orders as the oracle does on the same 8 bytes: the oracle over 9
+    bytes, divided by 95, is non-decreasing in ``packed_key`` order and
+    equal exactly where ``packed_key`` ties (a 3-letter alphabet makes
+    ties)."""
+    rng = np.random.default_rng(alphabet[0] + alphabet[1])
+    keys = [bytes(rng.integers(*alphabet, size=int(rng.integers(1, 13)), dtype=np.uint8))
+            for _ in range(300)]
+    for length in (8, 9, 10):
+        assert ([tenc.encode_base95_u64(k, length) for k in keys]
+                == [jenc.encode_base95_u64(k, length) for k in keys])
+    if alphabet[0] < 32:
+        return
+    keys = [k for k in keys if len(k) >= 8]  # 8 real bytes: no padding to tie a space
+    rows = np.stack([np.frombuffer(k.ljust(10, b"\0")[:10], np.uint8) for k in keys])
+    hi, lo = tenc.encode(torch.from_numpy(rows))
+    packed = tenc.packed_key(hi, lo)
+    order = torch.sort(packed, stable=True).indices.tolist()
+    b95 = [tenc.encode_base95_u64(keys[i]) // 95 for i in order]
+    pk = packed[order].tolist()
+    for a in range(len(order) - 1):
+        assert b95[a] <= b95[a + 1]
+        assert (b95[a] == b95[a + 1]) == (pk[a] == pk[a + 1])
