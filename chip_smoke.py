@@ -32,7 +32,7 @@ Phases, one line each (any failure exits non-zero):
    gensort file (10M records), validated, with every kernel of the sort
    launched, and its manifest loaded back;
 4. serve   — ``QueryServer`` under the default ``ServeConfig()`` over
-   that file: 10,000 point queries (half hits) and 200 range scans of
+   that file: 4,096 point queries (half hits) and 200 range scans of
    1,000 records, every answer held against a NumPy ``searchsorted``
    oracle, the RMI kernel launched while serving; then 4,096 of the
    points and the ranges through ``QueryEngine`` for its phase seconds, and
@@ -99,7 +99,7 @@ Phases, one line each (any failure exits non-zero):
    chunked attention; a padded last Mamba chunk) for 64 new at capacity
    factor n_experts / top_k (the default's drop fraction logged); (e)
    xlstm-350m at full size (24 mLSTM/sLSTM layers, 405,431,392
-   parameters) serves 4 x 512 + 32, its prefill stepping the recurrence
+   parameters) serves 4 x 256 + 32, its prefill stepping the recurrence
    token by token; (f) whisper-medium at full size (24 encoder and 24
    decoder layers, 1,012,353,024 parameters) serves 4 requests of 1,500
    seeded stub frames and a 16-token prompt for 224 new, the encoder
@@ -120,10 +120,19 @@ Phases, one line each (any failure exits non-zero):
    backward); (b) mixtral-8x7b at full width, 2 of its 32 layers, 4
    steps on 1 x 4,608 tokens at the default capacity factor 1.25 (the
    blockwise attention's backward, a ragged last block, the 4,096
-   window; ``moe_dropped_frac`` logged).  Each: every loss, norm and
-   parameter finite, ``grad_norm`` > 0, step 0's ``loss_total`` within
-   5e-2 of ``loss_fn`` under ``inference_mode``, the last loss below the
-   first; ms a step, tokens/s, peak memory and the device trace logged.
+   window; ``moe_dropped_frac`` logged); (d) xlstm-350m at full width
+   and depth (405,431,392 parameters), 3 steps on one repeated batch of
+   2 x 512 tokens (the sLSTM loop's backward through
+   ``models/recurrence.scan``, the parallel mLSTM's (B, S, S) decay
+   matrix; cut from 2 x 1,024, where a step took 83.8 s, and traced over
+   its last step alone); (e) whisper-medium at full width and depth (24 encoder and
+   24 decoder layers, 1,012,353,024 parameters), 3 steps on 2 x (1,500
+   seeded stub frames, 1,024 tokens) (the encoder's and the
+   cross-attention's backward).  Each: every loss, norm and parameter
+   finite, ``grad_norm`` > 0, step 0's ``loss_total`` within 5e-2 of
+   ``loss_fn`` under ``inference_mode``, the last loss below the first;
+   ms a step, tokens/s, peak memory and the device trace logged; each
+   model freed before the next.
    (c) The ten archs at smoke size on the card against the host with
    the same parameters: bf16 gradients within 0.05 relative L2 a leaf,
    one step's loss within 5e-2 and update within the reference's
@@ -141,20 +150,26 @@ Phases, one line each (any failure exits non-zero):
    on the card from the same parameters: every ``loss_total`` within
    1e-2, step 0's update within the reference's microbatch check (dd <
    0.35 d1) on four leaves; ms a step, tokens/s, peak memory and one
-   step's collectives by kind logged.  (Several gloo ranks sharing the
-   card cannot carry DTensor — its functional all-gather ends the
-   process, ``experiments/gloo_cuda_probe.py`` — and NCCL puts no two
-   ranks on one card; the CPU tests hold the multi-rank step.)  (b)
+   step's collectives by kind logged.  On a (1, 1) mesh every batch
+   placement is ``Replicate`` (``spmd.batch_placements``: a mesh axis of
+   size 1 never shards a batch).  Then, on the same mesh, one sequence
+   served: a prefill of 24 tokens and 4 teacher-forced decode steps of
+   full-size qwen3-4b, its logits within 0.3 (phase 11's bound for
+   qwen3-4b) of the plain path's on the same parameters.  (Several gloo
+   ranks sharing the card cannot carry DTensor — its functional
+   all-gather ends the process, ``experiments/gloo_cuda_probe.py`` — and
+   NCCL puts no two ranks on one card; the CPU tests hold the multi-rank
+   step.)  (b)
    ``launch.train.train`` at smoke size on that mesh, stopped at step 2
    with a checkpoint, resumed on it and on one rank (no process group):
    the uninterrupted losses within 2e-2.  (c) ``launch.dryrun`` of
    qwen3-4b ``train_4k``, mixtral-8x7b ``decode_32k`` and xlstm-350m
    ``train_4k`` (its recurrence counted one step for all) on the 16 x 16
-   fake mesh, each in a subprocess beside (a) and (b), its record and
-   seconds logged.  (d) The four sorter kernels launch 0 times in this
-   phase: ``launches_mesh`` sums the counts each rank reads over its own
-   (a) and (b); this process's (the plain reference step, the one-rank
-   resume) must be 0 too.
+   fake mesh, each in a subprocess on the host's cores, started before
+   phase 12 and read here, its record and seconds logged.  (d) The four
+   sorter kernels launch 0 times in this phase: ``launches_mesh`` sums
+   the counts each rank reads over its own (a) and (b); this process's
+   (the plain reference step, the one-rank resume) must be 0 too.
 14. examples (after phase 13) — each ``examples/torch_*.py`` run as a
    user runs it, in a subprocess with ``--device cuda``, the four at
    once: the quickstart at 500,000 skewed records with 2 readers (its
@@ -202,11 +217,13 @@ POW2_RECORDS = 1 << 20
 # split strategy's top bin count, read from the device, is added)
 HIST_BINS = (8192, 58_113, 464_896, 1 << 20)
 HALF = 666_896  # records of the batch's first partition
-# 10,000 points, not 20,000: each hit costs 24-38 ms of host time (this
-# script, beside an H100 80GB HBM3 at 700 W), because a 1 GB file's
-# ~67 MB partitions exceed the default 64 MB block cache, whose bypass
-# copies the whole partition per fetch
-SERVE_POINTS, SERVE_RANGES, RANGE_RECORDS = 10_000, 200, 1_000
+# 4,096 points (four waves of 1,024), not 10,000: each hit costs 24-38 ms
+# of host time (this script, beside an H100 80GB HBM3 at 700 W), because a
+# 1 GB file's ~67 MB partitions exceed the default 64 MB block cache, whose
+# bypass copies the whole partition per fetch; at 10,000 the serve phase
+# took 264 s of a whole run of 1,144 s on a slower host, too near the
+# script's 1,200 s once phase 12 trained xlstm and whisper at full size
+SERVE_POINTS, SERVE_RANGES, RANGE_RECORDS = 4096, 200, 1_000
 ENGINE_POINTS = 4096
 QUERY_RECORDS = 200_000
 # the operator cell of benchmarks/join_rates.py (its defaults: 1M lines a
@@ -248,10 +265,13 @@ LM_TOL_JAMBA, LM_TOL_XLSTM, LM_TOL_WHISPER = 0.2, 0.45, 0.25
 # (d) jamba-v0.1-52b at full width, one period (8 of 32 layers), serves one
 # prompt of 2,600 tokens (above the chunked-attention threshold; ten Mamba
 # chunks of 256 and a padded one of 40) for 64 new; (e) xlstm-350m at full
-# size serves (a)'s 4 x 512 + 32; (f) whisper-medium at full size serves 4
-# requests of 1,500 stub frames and a 16-token prompt for 224 new
+# size serves 4 x 256 + 32 (its prefill steps token by token: 20.7 s at
+# 4 x 512 on an H100 80GB HBM3 at 700 W, cut for the script's time limit);
+# (f) whisper-medium at full size serves 4 requests of 1,500 stub frames
+# and a 16-token prompt for 224 new
 LM_JAMBA_LAYERS, LM_JAMBA_PROMPT, LM_JAMBA_NEW = 8, 2600, 64
 LM_WHISPER_REQUESTS, LM_WHISPER_PROMPT, LM_WHISPER_NEW = 4, 16, 224
+LM_XLSTM_PROMPT = 256
 LM_ARCHS = ("qwen3-4b", "qwen3-8b", "yi-9b", "qwen2-72b", "mixtral-8x7b",
             "moonshot-v1-16b-a3b", "internvl2-26b", "jamba-v0.1-52b", "xlstm-350m",
             "whisper-medium")
@@ -267,6 +287,16 @@ LM_ARCHS = ("qwen3-4b", "qwen3-8b", "yi-9b", "qwen2-72b", "mixtral-8x7b",
 # microbatch check (dd < 0.35 d1), the resumed losses' its resume check.
 TRAIN_A_STEPS, TRAIN_A_BATCH, TRAIN_A_SEQ = 6, 2, 1024
 TRAIN_B_STEPS, TRAIN_B_SEQ = 4, 4608
+# (d) xlstm-350m at full size, 3 steps on 2 x 512 (the sLSTM loop's
+# backward through recurrence.scan, the parallel mLSTM's (B, S, S) decay
+# matrix), its device trace over the last step alone: at 2 x 1,024 a step
+# took 83.8 s (12 sLSTM layers x 1,024 steps of small launches, forward,
+# remat recompute and backward; 6 % device busy) and reading a trace of
+# all three ~200 s more, on an H100 80GB HBM3 at 700 W; (e) whisper-medium
+# at full size, 3 steps on 2 x (1,500 seeded stub frames, 1,024 tokens)
+# (the encoder-decoder's cross-attention backward)
+TRAIN_D_STEPS, TRAIN_D_BATCH, TRAIN_D_SEQ, TRAIN_D_TRACED = 3, 2, 512, 1
+TRAIN_E_STEPS, TRAIN_E_BATCH, TRAIN_E_SEQ = 3, 2, 1024
 TRAIN_LR = 3e-4
 TRAIN_GRAD_TOL, TRAIN_GRAD_FLOOR, TRAIN_UPDATE_TOL, TRAIN_RESUME_RTOL = 0.05, 1e-3, 0.35, 2e-2
 # the examples phase: each examples/torch_*.py as a user runs it, on the
@@ -1848,7 +1878,7 @@ def lm_e(torch, np) -> dict:
 
     cfg = registry.get_config("xlstm-350m")
     params, t1 = lm_init(torch, cfg, "(e)")
-    prompts = _synthetic(cfg, LM_PROMPT_LEN, LM_PROMPTS)
+    prompts = _synthetic(cfg, LM_XLSTM_PROMPT, LM_PROMPTS)
     e = lm_serve(torch, np, cfg, params, prompts, LM_NEW, "(e) xlstm")
     lm_check(torch, np, cfg, params, prompts, e["gen"], LM_TOL_XLSTM, "(e) xlstm")
     del params
@@ -1911,42 +1941,50 @@ def phase_lm(torch, results: dict) -> None:
     log(f"lm: phase {time.perf_counter() - t0:.1f} s")
 
 
-def lm_train(torch, np, cfg, params, tokens, steps: int, what: str) -> dict:
+def lm_train(torch, np, cfg, params, batch: dict, steps: int, what: str,
+             traced: int | None = None) -> dict:
     """``steps`` train steps of ``train_loop.build_train_step`` (the
     launcher's step: AdamW, per-layer remat, bf16 gradients) on one
-    repeated batch, under a device trace.  Checks: every loss, norm and
-    parameter finite; ``grad_norm`` > 0; the first step's ``loss_total``
-    within ``LM_TOL`` of ``loss_fn`` under ``inference_mode``; the last
-    loss below the first; no sorter kernel launched.  Logs ms a step,
-    tokens/s, peak memory and the device trace."""
+    repeated batch (host arrays: ``tokens``, and ``frontend_embeds``
+    where the arch takes them), the last ``traced`` of them (all by
+    default) under a device trace.  Checks: every
+    loss, norm and parameter finite; ``grad_norm`` > 0; the first step's
+    ``loss_total`` within ``LM_TOL`` of ``loss_fn`` under
+    ``inference_mode``; the last loss below the first; no sorter kernel
+    launched.  Logs ms a step, tokens/s, peak memory and the device
+    trace."""
     from repro_torch.kernels import ops
     from repro_torch.models.api import build_model
     from repro_torch.train import optimizer as opt_lib, train_loop
 
     model = build_model(cfg)
     model.trainable(params)
-    batch = {"tokens": torch.as_tensor(tokens, device="cuda")}
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
     with torch.inference_mode():
         want = float(model.loss_fn(params, batch)[0])
     opt_state = opt_lib.init_state(params)
     step = train_loop.build_train_step(model, opt_lib.AdamWConfig(
         lr=TRAIN_LR, warmup_steps=1, total_steps=steps))
+    traced = steps if traced is None else traced
     torch.cuda.synchronize()
     ops.reset_launches()
-    prof = start_device_trace(torch)
     t0 = time.perf_counter()
     losses, norms, drops, ms = [], [], [], []
-    for _ in range(steps):
+    for i in range(steps):
+        if i == steps - traced:
+            prof, t_trace = start_device_trace(torch), time.perf_counter()
         t1 = time.perf_counter()
         _, _, m = step(params, opt_state, batch)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t1) * 1e3)
         losses.append(float(m["loss_total"]))
         norms.append(float(m["grad_norm"]))
-        drops.append(float(m["moe_dropped_frac"]))
+        drops.append(float(m.get("moe_dropped_frac", 0.0)))  # no MoE metrics: 0
     wall = time.perf_counter() - t0
     launches = launch_counts()
-    log_device_time(prof, f"train: {what}", wall)
+    log_device_time(prof, f"train: {what}" + (f" (the last {traced} of {steps} steps)"
+                                              if traced < steps else ""),
+                    time.perf_counter() - t_trace)
     finite = all(bool(torch.isfinite(p).all()) for p in params.parameters())
     require(finite and all(np.isfinite(losses + norms)),
             f"{what}: a loss, norm or parameter is not finite ({losses}, {norms})")
@@ -1959,7 +1997,9 @@ def lm_train(torch, np, cfg, params, tokens, steps: int, what: str) -> dict:
     n_tok = int(batch["tokens"].numel())
     steady = statistics.median(ms[1:])
     n_moe = sum(k == "moe" for period in params.periods for k in period)
-    log(f"train: {what} {steps} steps on {tuple(batch['tokens'].shape)} tokens in "
+    frames = (f" and {tuple(batch['frontend_embeds'].shape)} frames"
+              if "frontend_embeds" in batch else "")
+    log(f"train: {what} {steps} steps on {tuple(batch['tokens'].shape)} tokens{frames} in "
         f"{wall:.2f} s: step 0 {ms[0]:.1f} ms, then median {steady:.1f} ms a step "
         f"({[round(x, 1) for x in ms]}), {n_tok / steady * 1e3:.1f} tokens/s; peak "
         f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; sorter kernel "
@@ -1979,8 +2019,8 @@ def train_a(torch, np) -> dict:
 
     cfg = registry.get_config("qwen3-4b")
     params, t1 = lm_init(torch, cfg, "(a) train")
-    tokens = _synthetic(cfg, TRAIN_A_SEQ, TRAIN_A_BATCH)
-    launches = lm_train(torch, np, cfg, params, tokens, TRAIN_A_STEPS, "(a) qwen3-4b")
+    batch = {"tokens": _synthetic(cfg, TRAIN_A_SEQ, TRAIN_A_BATCH)}
+    launches = lm_train(torch, np, cfg, params, batch, TRAIN_A_STEPS, "(a) qwen3-4b")
     del params
     lm_done(torch, "(a) train", t1)
     return launches
@@ -1997,11 +2037,43 @@ def train_b(torch, np) -> dict:
     params, t1 = lm_init(torch, cfg, "(b) train", f" of {full.n_layers}")
     log(f"lm: (b) train: window {cfg.window}, capacity factor "
         f"{cfg.moe.capacity_factor}")
-    tokens = _synthetic(cfg, TRAIN_B_SEQ, 1)
-    launches = lm_train(torch, np, cfg, params, tokens, TRAIN_B_STEPS, "(b) mixtral")
+    batch = {"tokens": _synthetic(cfg, TRAIN_B_SEQ, 1)}
+    launches = lm_train(torch, np, cfg, params, batch, TRAIN_B_STEPS, "(b) mixtral")
     del params
     lm_done(torch, "(b) train", t1)
     return launches
+
+
+def train_d(torch, np) -> dict:
+    """(d) xlstm-350m, full width and depth."""
+    from repro_torch.configs import registry
+
+    cfg = registry.get_config("xlstm-350m")
+    params, t1 = lm_init(torch, cfg, "(d) train")
+    batch = {"tokens": _synthetic(cfg, TRAIN_D_SEQ, TRAIN_D_BATCH)}
+    launches = lm_train(torch, np, cfg, params, batch, TRAIN_D_STEPS, "(d) xlstm-350m",
+                        traced=TRAIN_D_TRACED)
+    del params
+    lm_done(torch, "(d) train", t1)
+    return launches
+
+
+def train_e(torch, np) -> dict:
+    """(e) whisper-medium, full width and depth, on seeded stub frames."""
+    from repro_torch.configs import registry
+
+    cfg = registry.get_config("whisper-medium")
+    params, t1 = lm_init(torch, cfg, "(e) train", f" + {cfg.n_enc_layers} encoder")
+    batch = {"tokens": _synthetic(cfg, TRAIN_E_SEQ, TRAIN_E_BATCH),
+             "frontend_embeds": np.random.default_rng(0).standard_normal(
+                 (TRAIN_E_BATCH, cfg.n_frontend_tokens, cfg.d_frontend)).astype(np.float32)}
+    launches = lm_train(torch, np, cfg, params, batch, TRAIN_E_STEPS, "(e) whisper-medium")
+    del params
+    lm_done(torch, "(e) train", t1)
+    return launches
+
+
+TRAIN_RUNS = (("a", train_a), ("b", train_b), ("d", train_d), ("e", train_e))
 
 
 def _train_batch(torch, np, cfg, dev) -> dict:
@@ -2077,8 +2149,10 @@ def train_resume_on_card(np, tmp: str) -> None:
         f"{[round(x, 4) for x in full[4:]]}, largest relative difference {rel:.2e}")
 
 
-def phase_train(torch, results: dict) -> None:
-    """12. The LM training path (see the module docstring)."""
+def phase_train(torch, results: dict, runs: str = "abde") -> None:
+    """12. The LM training path (see the module docstring); ``runs``: the
+    full-size runs to make, by key (``experiments/lm_paths.py`` runs a
+    few alone)."""
     import numpy as np
 
     from repro_torch.kernels import ops
@@ -2086,7 +2160,7 @@ def phase_train(torch, results: dict) -> None:
     t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    train_launches = {key: fn(torch, np) for key, fn in (("a", train_a), ("b", train_b))}
+    train_launches = {key: fn(torch, np) for key, fn in TRAIN_RUNS if key in runs}
 
     t1 = time.perf_counter()
     ops.reset_launches()
@@ -2117,9 +2191,11 @@ def phase_train(torch, results: dict) -> None:
 # reference's microbatch check (dd < 0.35 d1) on MESH_LEAVES.  (b)
 # launch.train at smoke size on the same ranks, stopped at step 2, resumed
 # on (world, 1) and on one rank: the uninterrupted losses within 2e-2.
-# (c) three dry-run cells in subprocesses, beside (a) and (b): xlstm-350m
-# train_4k (its sLSTM loop counted one step for all, models/recurrence.py)
-# traced in 50.5 s on the card machine's CPU.
+# After (a), one sequence served on the same mesh (MESH_B1_*) against the
+# plain path.  (c) three dry-run cells in subprocesses, started before
+# phase 12 (their CPU time, 203 s for qwen3-4b train_4k, then hides behind
+# phases 12 and 13): xlstm-350m train_4k (its sLSTM loop counted one step
+# for all, models/recurrence.py) traced in 50.5 s on the card machine's CPU.
 # Several gloo ranks sharing the card cannot carry DTensor: plain gloo
 # collectives on CUDA tensors run, but DTensor's first redistribution on a
 # 2 x 2 mesh ends the process with SIGSEGV (experiments/gloo_cuda_probe.py),
@@ -2129,6 +2205,9 @@ def phase_train(torch, results: dict) -> None:
 # peak leaves no room for 4 x 1,024 beside 61.8 GB of state); the tests
 # hold the multi-rank step on gloo CPU ranks.
 MESH_SHAPE, MESH_LAYERS, MESH_STEPS, MESH_BATCH, MESH_SEQ = (1, 1), 36, 4, 2, 1024
+# after (a): one sequence served on the same mesh against the plain path,
+# within phase 11's bound for qwen3-4b's 36 layers
+MESH_B1_PROMPT, MESH_B1_STEPS, MESH_B1_TOL = 24, 4, LM_TOL_DEEP
 MESH_BACKEND = "nccl"
 MESH_LOSS_TOL = 1e-2
 MESH_LEAVES = ("embed", "layers.0.00_attn.wq", "layers.3.01_mlp.w_down", "final_norm")
@@ -2187,6 +2266,50 @@ def mesh_single(torch, np, out: str) -> dict:
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
+def mesh_serve_batch1(torch, model, mesh) -> dict:
+    """(a)'s batch-1 serving check: a prefill of MESH_B1_PROMPT tokens and
+    MESH_B1_STEPS teacher-forced decode steps of one sequence, first on
+    plain parameters, then on the same parameters laid out on ``mesh``
+    (every batch placement ``Replicate`` on its size-1 axes); returns the
+    largest logit difference, the times and the batch's layout."""
+    from repro_torch.sharding import rules, spmd
+
+    n = MESH_B1_PROMPT + MESH_B1_STEPS
+    tok = torch.as_tensor(_synthetic(model.cfg, n, 1), device="cuda")
+    params = model.init_params(seed=0)
+    out = {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        if m is not None:
+            rules.set_active_mesh(m)
+            spmd.distribute_params(params, m)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad(), spmd.maybe_sharded(m):
+            b = {"tokens": tok[:, :MESH_B1_PROMPT]}
+            if m is not None:
+                b = spmd.shard_batch(b, m)
+            last, cache = model.prefill(params, b, max_seq=n)
+            logits = [spmd.full(last).float()]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for t in range(MESH_B1_STEPS):
+                nxt = tok[:, MESH_B1_PROMPT + t:MESH_B1_PROMPT + t + 1]
+                if m is not None:
+                    nxt = spmd.shard_batch({"t": nxt}, m)["t"]
+                logits.append(spmd.full(model.decode_logits(params, cache, nxt))[:, -1].float())
+            torch.cuda.synchronize()
+        out[name] = {"logits": torch.stack(logits), "prefill_ms": (t1 - t0) * 1e3,
+                     "decode_ms": (time.perf_counter() - t1) * 1e3 / MESH_B1_STEPS}
+        if m is not None:
+            out[name]["layout"] = [str(p) for p in spmd.batch_placements(m, 1)]
+            rules.set_active_mesh(None)
+    want, got = out["plain"].pop("logits"), out["mesh"].pop("logits")
+    del params, cache
+    torch.cuda.empty_cache()
+    return {"max_abs": float((got - want).abs().max()),
+            "finite": bool(torch.isfinite(got).all()), **out}
+
+
 def mesh_rank() -> None:
     """One rank of phase 13, spawned by ``phase_mesh``: (a) the sharded
     step of ``_mesh_cfg()`` on MESH_SHAPE, (b) ``launch.train`` stopped
@@ -2243,6 +2366,7 @@ def mesh_rank() -> None:
     del params, opt_state, step
     rules.set_active_mesh(None)
     torch.cuda.empty_cache()
+    res["batch1"] = mesh_serve_batch1(torch, model, mesh)
     # (b) the launcher at smoke size, stopped at step 2 and resumed
     kw = dict(smoke=True, steps=4, batch=4, seq=16, log_every=100)
     ck = env["MESH_CKPT"]
@@ -2255,8 +2379,36 @@ def mesh_rank() -> None:
     tmesh.exit_rank()
 
 
-def phase_mesh(torch, results: dict) -> None:
-    """13. The sharded LM step (see the module docstring)."""
+def start_dryrun() -> tuple:
+    """(c) the dry run's cells, each in a process of its own (a fake
+    process group), started on the host's cores, their output to files
+    (no pipe fills while they run); ``phase_mesh`` reads them and
+    ``stop_dryrun`` ends them."""
+    dry_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    started = []
+    for arch, shape in MESH_DRYRUN:
+        with open(os.path.join(dry_dir, f"{arch}__{shape}.log"), "w") as out:
+            started.append((arch, shape, time.perf_counter(), subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                 "--shape", shape, "--mesh", "single", "--out", dry_dir],
+                env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")},
+                stdout=out, stderr=subprocess.STDOUT)))
+    return dry_dir, started
+
+
+def stop_dryrun(started: tuple) -> None:
+    dry_dir, dry = started
+    for _, _, _, proc in dry:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    shutil.rmtree(dry_dir, ignore_errors=True)
+
+
+def phase_mesh(torch, results: dict, started: tuple | None = None) -> None:
+    """13. The sharded LM step (see the module docstring); ``started``:
+    the dry run's cells from ``start_dryrun``, started earlier (by default
+    they start here, beside (a) and (b))."""
     import numpy as np
 
     from repro_torch.kernels import ops
@@ -2266,15 +2418,8 @@ def phase_mesh(torch, results: dict) -> None:
     t0 = time.perf_counter()
     ops.reset_launches()
     world = MESH_SHAPE[0] * MESH_SHAPE[1]
-    # (c) the dry run, each cell in a process of its own (a fake process
-    # group), on the host's cores beside (a) and (b)
-    dry_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
-    dry = [(arch, shape, time.perf_counter(), subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-         "--shape", shape, "--mesh", "single", "--out", dry_dir],
-        env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")},
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-        for arch, shape in MESH_DRYRUN]
+    started = started or start_dryrun()
+    dry_dir, dry = started
     try:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
             torch.cuda.reset_peak_memory_stats()
@@ -2314,6 +2459,14 @@ def phase_mesh(torch, results: dict) -> None:
             f"{n_tok / steady * 1e3:.1f} tokens/s); peak {res['peak_gb']:.2f} GB on rank 0; "
             f"layouts {res['placements']}")
         log(f"mesh: (a) collectives of one step on rank 0 {json.dumps(res['collectives'])}")
+        b1 = res["batch1"]
+        require(b1["finite"] and b1["max_abs"] <= MESH_B1_TOL,
+                f"(a) batch-1 serving on the mesh against the plain path: {b1}")
+        log(f"mesh: (a) batch 1 served on {MESH_SHAPE} (batch layout {b1['mesh']['layout']}): "
+            f"prefill {MESH_B1_PROMPT} + {MESH_B1_STEPS} decode steps, logits max |diff| "
+            f"{b1['max_abs']:.4e} <= {MESH_B1_TOL} against the plain path; prefill "
+            f"{b1['mesh']['prefill_ms']:.1f} ms, decode {b1['mesh']['decode_ms']:.1f} ms a step "
+            f"(plain {b1['plain']['prefill_ms']:.1f} ms, {b1['plain']['decode_ms']:.1f} ms)")
         full = res["b_full"]
         for what, got in ((f"({world}, 1)", res["b_resumed_4x1"]), ("one rank", one)):
             rel = float(np.max(np.abs(np.asarray(got) / np.asarray(full[2:]) - 1)))
@@ -2324,22 +2477,20 @@ def phase_mesh(torch, results: dict) -> None:
                 f"largest relative difference {rel:.2e}")
         log(f"mesh: (a)+(b) ranks {ranks_s:.1f} s")
         for arch, shape, t1, proc in dry:
-            _, err = proc.communicate(timeout=900)
+            proc.wait(timeout=900)
             secs = time.perf_counter() - t1
             path = os.path.join(dry_dir, f"{arch}__{shape}__single.json")
+            with open(os.path.join(dry_dir, f"{arch}__{shape}.log")) as f:
+                err = f.read()
             require(proc.returncode == 0 and os.path.exists(path),
                     f"(c) dry run {arch} {shape}: {err[-2000:]}")
             with open(path) as f:
                 cell = json.load(f)
             require(cell["status"] == "ok", f"(c) dry run {arch} {shape}: {cell}")
             log(f"mesh: (c) dry run {arch} {shape} single (16 x 16), done "
-                f"{secs:.1f} s into the phase: {json.dumps(cell)}")
+                f"{secs:.1f} s after it started: {json.dumps(cell)}")
     finally:
-        for _, _, _, proc in dry:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        shutil.rmtree(dry_dir, ignore_errors=True)
+        stop_dryrun(started)
     # the main path ran in the ranks: their counts, summed; this process's
     # own (the single-rank reference and the one-rank resume) held apart
     launches = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
@@ -2632,9 +2783,14 @@ def main() -> int:
 
     # 11. the LM serving path; 12. the LM training path
     phase_lm(torch, results)
-    phase_train(torch, results)
-    # 13. the sharded LM step
-    phase_mesh(torch, results)
+    # 13. (c)'s dry-run cells run on the host's cores beside phases 12 and 13
+    dry = start_dryrun()
+    try:
+        phase_train(torch, results)
+        # 13. the sharded LM step
+        phase_mesh(torch, results, dry)
+    finally:
+        stop_dryrun(dry)
     # 14. the examples
     phase_examples(torch, results)
     log(f"smoke: every phase ok in {time.perf_counter() - t_start:.1f} s")

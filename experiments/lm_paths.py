@@ -3,8 +3,11 @@
 CUDA card: ``a`` qwen3-4b, ``b`` 2-layer mixtral, ``d`` one period of
 jamba, ``e`` xlstm-350m, ``f`` whisper-medium, ``c`` the ten archs at
 smoke size card against host; each under ``torch.inference_mode()``, as
-phase 11 serves.  ``train``: the LM training phase (phase 12) whole;
-``mesh``: the sharded LM step's phase (phase 13) whole; ``examples``: the
+phase 11 serves.  ``train``: the LM training phase (phase 12) whole, or
+with ``--train-runs KEYS`` only the full-size runs named (``de``: xlstm
+and whisper) before its smoke-size part; ``mesh``: the sharded LM step's
+phase (phase 13) whole; ``mesh-a``: its (a) step and batch-1 check
+alone, in a rank spawned as the phase spawns it; ``examples``: the
 examples phase (phase 14) whole.
 
 - ``--measure``: the served-vs-forward tolerances of the paths run are
@@ -21,12 +24,17 @@ examples phase (phase 14) whole.
   served-vs-forward drift.  DIR's chunked attention takes causal
   self-attention only, so this reproduces the comparison on path ``b``
   alone (``d``'s attention is chunked too, but DIR cannot build jamba).
+  With ``mesh-a``, DIR's phase 13 rank (its ``chip_smoke.mesh_rank`` on
+  its own package) runs in turns with this tree's, against one plain
+  reference step: how a change of the DTensor layouts moves (a)'s ms a
+  step and collectives.
 
 Run from the repository root:
 
     python3 experiments/lm_paths.py b d e f [--measure] [--sums] [--parent DIR]
-    python3 experiments/lm_paths.py train
+    python3 experiments/lm_paths.py train [--train-runs abde]
     python3 experiments/lm_paths.py mesh
+    python3 experiments/lm_paths.py mesh-a [--parent DIR]
     python3 experiments/lm_paths.py examples
 """
 
@@ -71,11 +79,49 @@ def both_sums(cs):
     cs.device_time = device_time
 
 
+def mesh_turns(cs, torch, np, parent: str | None) -> None:
+    """Phase 13 (a) and its batch-1 check alone: the plain reference step
+    once, then a rank of this tree (and, given ``parent``, of DIR in turns:
+    parent, this tree, this tree, parent), each logging its losses
+    against the reference's, ms a step, collectives and batch-1 check."""
+    import json
+    import tempfile
+
+    from repro_torch.launch import mesh as tmesh
+
+    turns = [("this tree", ROOT)]
+    if parent:
+        turns = [("parent", parent), ("this tree", ROOT), ("this tree", ROOT),
+                 ("parent", parent)]
+    with tempfile.TemporaryDirectory(prefix="lm_paths_mesh_") as tmp:
+        ref_path = os.path.join(tmp, "ref.pt")
+        ref = cs.mesh_single(torch, np, ref_path)
+        torch.cuda.empty_cache()
+        cs.log(f"lm_paths: mesh (a) plain step loss_total {ref['losses']}, ms a step "
+               f"{[round(x, 1) for x in ref['ms']]}")
+        for i, (name, root) in enumerate(turns):
+            t = time.perf_counter()
+            code = (f"import sys; sys.path[:0] = [{root!r}, {os.path.join(root, 'src')!r}]; "
+                    "import chip_smoke; chip_smoke.mesh_rank()")
+            outs = tmesh.spawn(code, 1, timeout_s=900, env={
+                "MESH_STORE": os.path.join(tmp, f"store{i}"), "MESH_REF": ref_path,
+                "MESH_CKPT": os.path.join(tmp, f"ck{i}"), "MESH_BACKEND": cs.MESH_BACKEND,
+                "MESH_SHAPE": json.dumps(cs.MESH_SHAPE)})
+            res = json.loads([x for x in outs[0].splitlines() if x.startswith("RANK ")][-1][5:])
+            diff = max(abs(a - b) for a, b in zip(res["losses"], ref["losses"]))
+            cs.log(f"lm_paths: mesh (a) {name}: loss_total {res['losses']} (largest "
+                   f"difference {diff:.2e}), ms a step {[round(x, 1) for x in res['ms']]}, "
+                   f"peak {res['peak_gb']:.2f} GB, collectives {json.dumps(res['collectives'])}, "
+                   f"layouts {res['placements']}; batch 1 {json.dumps(res.get('batch1'))}; "
+                   f"{time.perf_counter() - t:.1f} s")
+
+
 def main() -> int:
     args = sys.argv[1:]
     measure = "--measure" in args
     sums = "--sums" in args
     parent = args[args.index("--parent") + 1] if "--parent" in args else None
+    train_runs = args[args.index("--train-runs") + 1] if "--train-runs" in args else "abde"
     paths = [a for a in args if a in tuple("abcdef")]
     sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
     import numpy as np
@@ -96,7 +142,7 @@ def main() -> int:
     if sums:
         both_sums(cs)
     turns = [("this tree", attention._sdpa_chunked)]
-    if parent:
+    if parent and paths:
         mine, theirs = attention._sdpa_chunked, parent_chunked(parent)
         turns = [("parent", theirs), ("this tree", mine), ("this tree", mine),
                  ("parent", theirs)]
@@ -115,7 +161,9 @@ def main() -> int:
                    f"{time.perf_counter() - t:.1f} s")
     if "train" in args:
         cs.phase_train(torch, {k: {} for k in ("encode", "rmi_bucket", "sort_rows",
-                                               "histogram")})
+                                               "histogram")}, train_runs)
+    if "mesh-a" in args:
+        mesh_turns(cs, torch, np, parent)
     if "mesh" in args:
         cs.phase_mesh(torch, {k: {} for k in ("encode", "rmi_bucket", "sort_rows",
                                               "histogram")})

@@ -68,11 +68,14 @@ def on_replicas(fn, n_out: int, *args):
 def batch_placements(mesh, batch: int) -> tuple:
     """The batch layout the rules give activations: dim 0 over every
     batch axis where ``batch`` divides their product, replicated over
-    "model"."""
+    "model".  An axis of size 1 holds the whole batch on its one rank, as
+    a ``NamedSharding`` over it does, so it is ``Replicate()``: DTensor
+    cannot view a ``Shard``ed dim of size 1, even over one rank."""
     names = mesh.mesh_dim_names
     n = math.prod(mesh.size(i) for i, a in enumerate(names) if a != "model")
     split = batch % n == 0
-    return tuple(Shard(0) if a != "model" and split else Replicate() for a in names)
+    return tuple(Shard(0) if a != "model" and split and mesh.size(i) > 1 else Replicate()
+                 for i, a in enumerate(names))
 
 
 def _summed_over_batch(bpl: tuple) -> tuple:

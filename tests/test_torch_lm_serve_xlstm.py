@@ -1,0 +1,41 @@
+"""Port parity of the LM serving path at smoke size, the recurrent arch
+(xlstm-350m: the parallel and recurrent mLSTM, the sLSTM loop, both
+states in the cache): ``forward``, ``prefill`` and its cache,
+teacher-forced ``decode_step``, ``ServeEngine.generate`` and the
+converter's round trip against the reference. The checks, tolerances and
+token rules are ``test_torch_lm_serve.py``'s."""
+
+import pytest
+
+pytest.importorskip("torch")
+
+from test_torch_lm_serve import (  # noqa: E402
+    _case,
+    check_forward,
+    check_prefill_and_decode,
+    check_round_trip,
+    check_serve_engine,
+)
+
+ARCHS = ["xlstm-350m"]
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def case(request):
+    return _case(request.param)
+
+
+def test_forward_matches_reference(case):
+    check_forward(case)
+
+
+def test_prefill_and_decode_match_reference(case):
+    check_prefill_and_decode(case)
+
+
+def test_serve_engine_matches_reference(case):
+    check_serve_engine(case)
+
+
+def test_from_jax_params_round_trip(case):
+    check_round_trip(case)
