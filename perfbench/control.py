@@ -1,0 +1,50 @@
+"""Run the controls and the planted faults of a cell at its own size.
+
+    python3 perfbench/control.py --workload <cell> --seeds 1,2,3 \
+        [--seconds S] [--paths hi32,f64,unchanged,half,altered,unstable,rows,fallback,program]
+
+For each seed and each path, one run of the cell (``harness.run_cell``)
+with that path in the program's place, in this one process (the set-up
+is paid per run, as in the benchmark).  Prints one JSON line a run:
+the seed, the path, ``correct`` and the numbers compared.  ``program`` is
+the program's own path, for the lower readings.  The benchmark's own
+runs never run this.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--workload", required=True)
+    ap.add_argument("--seeds", required=True)
+    ap.add_argument("--seconds", type=float, default=3.0)
+    ap.add_argument("--paths", default="hi32,f64,unchanged,half,altered,unstable,rows,fallback")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+    from perfbench import controls, harness, manifest
+
+    cell = manifest.cell(manifest.load(ROOT), args.workload, ROOT)
+    program = harness.program_sort()
+    for seed in (int(s) for s in args.seeds.split(",")):
+        for name in args.paths.split(","):
+            sort = None if name == "program" else controls.sort_for(name, program)
+            r = harness.run_cell(cell, seed, args.seconds, False, device=args.device,
+                                 t_start=time.perf_counter(), sort=sort)
+            print(json.dumps({"workload": args.workload, "seed": seed, "path": name,
+                              "correct": r["correct"], "attempted": r["attempted"],
+                              "failed": r["failed"], "checks": r["checks"]}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
