@@ -16,6 +16,15 @@ path (``executor="per_partition"``):
 Monotone model + per-bucket sort => globally sorted, with no merge.
 The batched executor's grid graph (``kernels/fused.py``) is the port's
 main device path; this chain is the dispatch-count baseline.
+
+Each call runs inside a ``repro_torch.sort_device`` profiler span, and
+each step inside one of its own (``core.stages.stats.span``):
+``rmi_bucket`` and ``sort_rows`` (in ``kernels/ops``), ``grid``,
+``overflow_test``, ``compact`` and ``fallback``.  Plain ``int``
+counters on :func:`sort_device` count its ``calls`` and ``records``, and
+of those the ``fallback_calls`` and ``fallback_records`` that the stable
+fallback sorted; :func:`reset_counters` sets them to 0, and so does
+``ops.reset_launches``.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ import torch
 
 from repro_torch.core import encoding, partition, rmi
 from repro_torch.core.encoding import SENTINEL
+from repro_torch.core.stages.stats import span
 from repro_torch.kernels import ops
 
 
@@ -79,13 +89,14 @@ def grid_rows(
     when their own words are SENTINEL (callers pad inputs with it)."""
     n = hi.shape[0]
     bucket = ops.rmi_bucket(model, hi, lo, n_buckets)
-    gather_idx, valid, counts = partition.bucket_matrix(
-        bucket, n_buckets, capacity
-    )
-    gather = gather_idx.to(torch.int64)
-    hi_m = torch.where(valid, hi[gather], SENTINEL)
-    lo_m = torch.where(valid, lo[gather], SENTINEL)
-    val_m = torch.where(valid, gather_idx, n)
+    with span("repro_torch.grid"):
+        gather_idx, valid, counts = partition.bucket_matrix(
+            bucket, n_buckets, capacity
+        )
+        gather = gather_idx.to(torch.int64)
+        hi_m = torch.where(valid, hi[gather], SENTINEL)
+        lo_m = torch.where(valid, lo[gather], SENTINEL)
+        val_m = torch.where(valid, gather_idx, n)
     return hi_m, lo_m, val_m, counts
 
 
@@ -117,15 +128,32 @@ def sort_device(
     for bit.
     """
     n = hi.shape[0]
-    n_buckets, capacity = grid_shape(n, n_buckets, capacity_factor)
-    hi_m, lo_m, val_m, counts = grid_rows(model, hi, lo, n_buckets, capacity)
-    overflow = bool((counts > capacity).any())
-    if overflow:
-        # full comparison sort — correct under any skew/duplicates
-        out = sort_oracle(hi, lo)
-    else:
-        out = _compact(*ops.sort_rows(hi_m, lo_m, val_m), counts, n)
+    sort_device.calls += 1
+    sort_device.records += n
+    with span("repro_torch.sort_device"):
+        n_buckets, capacity = grid_shape(n, n_buckets, capacity_factor)
+        hi_m, lo_m, val_m, counts = grid_rows(
+            model, hi, lo, n_buckets, capacity
+        )
+        with span("repro_torch.overflow_test"):
+            overflow = bool((counts > capacity).any())
+        if overflow:
+            sort_device.fallback_calls += 1
+            sort_device.fallback_records += n
+            # full comparison sort — correct under any skew/duplicates
+            with span("repro_torch.fallback"):
+                out = sort_oracle(hi, lo)
+        else:
+            rows = ops.sort_rows(hi_m, lo_m, val_m)
+            with span("repro_torch.compact"):
+                out = _compact(*rows, counts, n)
     return (*out, overflow) if return_overflow else out
+
+
+def reset_counters() -> None:
+    """Set :func:`sort_device`'s counters to 0."""
+    sort_device.calls = sort_device.records = 0
+    sort_device.fallback_calls = sort_device.fallback_records = 0
 
 
 def sort_oracle(
@@ -162,3 +190,7 @@ def sort_host(model: rmi.RMIParams, keys: np.ndarray) -> np.ndarray:
     if (k[:-1] > k[1:]).any():
         perm = perm[np.argsort(k, kind="stable")]
     return perm
+
+
+reset_counters()
+ops.COUNTER_RESETS.append(reset_counters)

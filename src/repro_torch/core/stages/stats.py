@@ -1,5 +1,6 @@
 """Instrumentation: ``SortStats`` + ``PhaseClock`` for the pipelined
-runtime, ``LatencyReservoir`` + ``ServeStats`` for query serving.
+runtime, ``LatencyReservoir`` + ``ServeStats`` for query serving, and
+:func:`span`, the profiler range around each step of the device sort.
 
 Copy of ``src/repro/core/stages/stats.py`` for the PyTorch port.
 
@@ -12,13 +13,28 @@ is its serving sibling, kept by ``repro_torch.serve.server.QueryServer``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
 
 import numpy as np
+from torch.autograd import _profiler_enabled
+from torch.profiler import record_function
 
 from repro_torch.data import gensort
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``torch.profiler`` range named ``name`` while a profiler is
+    running, else one shared no-op context, so that a span costs one
+    check when nothing traces.  The profiler keeps the ranges in memory,
+    on the clock of its device trace; nothing is written out here."""
+    if _profiler_enabled():
+        return record_function(name)
+    return _NO_SPAN
 
 
 class LatencyReservoir:
@@ -123,7 +139,6 @@ class SortStats:
     n_readers: int = 1
     wall_seconds: float = 0.0
     phase_wall_seconds: dict = dataclasses.field(default_factory=dict)
-    phase_cpu_seconds: dict = dataclasses.field(default_factory=dict)
     # set when the sort also emitted a query-serving sidecar (DESIGN.md §7)
     manifest_path: str | None = None
     # sort-executor accounting (DESIGN.md §10)
@@ -182,17 +197,15 @@ class PhaseClock:
     """Thread-safe phase accounting shared by every stage worker.
 
     ``timer(phase)`` context-manages one busy interval: busy seconds are
-    summed per phase, wall spans are merged (min start / max end), and
-    thread CPU time is accumulated via ``time.thread_time``.  Integer
-    event counters (device dispatches, batch slots, ...) accumulate via
-    ``add_counter`` and land in ``finish``.
+    summed per phase and wall spans are merged (min start / max end).
+    Integer event counters (device dispatches, batch slots, ...)
+    accumulate via ``add_counter`` and land in ``finish``.
     """
 
     def __init__(self):
         self._lock = threading.Lock()
         self._t0 = time.perf_counter()
         self.busy: dict[str, float] = {}
-        self.cpu: dict[str, float] = {}
         self.span: dict[str, list[float]] = {}
         self.counters: dict[str, int] = {}
         self.bytes_read = 0
@@ -210,10 +223,9 @@ class PhaseClock:
         with self._lock:
             self.counters[name] = self.counters.get(name, 0) + value
 
-    def _record(self, phase: str, t0: float, t1: float, cpu_dt: float) -> None:
+    def _record(self, phase: str, t0: float, t1: float) -> None:
         with self._lock:
             self.busy[phase] = self.busy.get(phase, 0.0) + (t1 - t0)
-            self.cpu[phase] = self.cpu.get(phase, 0.0) + cpu_dt
             span = self.span.setdefault(phase, [t0, t1])
             span[0] = min(span[0], t0)
             span[1] = max(span[1], t1)
@@ -221,7 +233,6 @@ class PhaseClock:
     def finish(self, stats: SortStats) -> None:
         stats.wall_seconds = time.perf_counter() - self._t0
         stats.phase_seconds = dict(self.busy)
-        stats.phase_cpu_seconds = dict(self.cpu)
         stats.phase_wall_seconds = {
             p: s[1] - s[0] for p, s in self.span.items()
         }
@@ -249,17 +260,11 @@ class _PhaseTimer:
 
     def __enter__(self):
         self.t0 = time.perf_counter()
-        self.c0 = time.thread_time()
         return self
 
     def __exit__(self, *exc):
         if not self._discarded:
-            self.clock._record(
-                self.phase,
-                self.t0,
-                time.perf_counter(),
-                time.thread_time() - self.c0,
-            )
+            self.clock._record(self.phase, self.t0, time.perf_counter())
 
 
 @dataclasses.dataclass

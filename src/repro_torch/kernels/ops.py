@@ -10,7 +10,12 @@ no fallback from one to the other.
 Each wrapper counts its kernel launches in a plain ``int`` attribute
 (``encode_keys.launches``, ...), bumped only where the kernel launches,
 so a run can show that its main path went through the kernels.
-:func:`reset_launches` sets every count to 0.
+:func:`reset_launches` sets every count to 0, and the counters of the
+callers above the kernels that register with it (``COUNTER_RESETS``):
+one call starts every count of the device path at 0.
+
+``encode_keys``, ``rmi_bucket`` and ``sort_rows`` each run inside a
+``repro_torch.<name>`` profiler span (``core.stages.stats.span``).
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import torch
 
 from repro_torch.core import rmi as rmi_lib
 from repro_torch.core.encoding import ENCODED_BYTES, SENTINEL
+from repro_torch.core.stages.stats import span
 from repro_torch.kernels import bitonic, encode, histogram, rmi
 
 _INT32_MAX = 2**31 - 1
@@ -32,15 +38,16 @@ def _require_cpu(t: torch.Tensor, what: str) -> None:
 def encode_keys(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(N, K) uint8 keys -> (hi, lo) int64-carried u32 words; keys are
     zero-padded or truncated to the 8 encoded bytes."""
-    w = keys.shape[1]
-    if w < ENCODED_BYTES:
-        keys = torch.nn.functional.pad(keys, (0, ENCODED_BYTES - w))
-    keys = keys[:, :ENCODED_BYTES].contiguous()
-    if keys.is_cuda:
-        encode_keys.launches += 1
-        return encode.encode_cuda(keys)
-    _require_cpu(keys, "encode_keys")
-    return encode.encode_plain(keys)
+    with span("repro_torch.encode_keys"):
+        w = keys.shape[1]
+        if w < ENCODED_BYTES:
+            keys = torch.nn.functional.pad(keys, (0, ENCODED_BYTES - w))
+        keys = keys[:, :ENCODED_BYTES].contiguous()
+        if keys.is_cuda:
+            encode_keys.launches += 1
+            return encode.encode_cuda(keys)
+        _require_cpu(keys, "encode_keys")
+        return encode.encode_plain(keys)
 
 
 def rmi_bucket(
@@ -50,11 +57,12 @@ def rmi_bucket(
     n_buckets: int,
 ) -> torch.Tensor:
     """Fused RMI inference + equi-depth bucket id, (N,) int32."""
-    if hi.is_cuda:
-        rmi_bucket.launches += 1
-        return rmi.rmi_bucket_cuda(params, hi, lo, n_buckets)
-    _require_cpu(hi, "rmi_bucket")
-    return rmi.rmi_bucket_plain(params, hi, lo, n_buckets)
+    with span("repro_torch.rmi_bucket"):
+        if hi.is_cuda:
+            rmi_bucket.launches += 1
+            return rmi.rmi_bucket_cuda(params, hi, lo, n_buckets)
+        _require_cpu(hi, "rmi_bucket")
+        return rmi.rmi_bucket_plain(params, hi, lo, n_buckets)
 
 
 def rmi_bucket_pair(
@@ -106,30 +114,36 @@ def sort_rows(
     """Row-wise ``(hi, lo, val)``-ascending sort.  Rows are padded to a
     power-of-two width with SENTINEL keys and max-val payloads, which
     lose every tiebreak against real data, and sliced back after."""
-    r, c = hi.shape
-    c_pow2 = 1 << (c - 1).bit_length()
-    if c_pow2 != c:
-        pad = (0, c_pow2 - c)
-        hi = torch.nn.functional.pad(hi, pad, value=SENTINEL)
-        lo = torch.nn.functional.pad(lo, pad, value=SENTINEL)
-        val = torch.nn.functional.pad(val, pad, value=_INT32_MAX)
-    if hi.is_cuda:
-        sort_rows.launches += 1
-        out = bitonic.sort_rows_cuda(
-            hi.contiguous(), lo.contiguous(), val.contiguous()
-        )
-    else:
-        _require_cpu(hi, "sort_rows")
-        out = bitonic.sort_rows_plain(hi, lo, val)
-    return tuple(t[:, :c] for t in out)
+    with span("repro_torch.sort_rows"):
+        r, c = hi.shape
+        c_pow2 = 1 << (c - 1).bit_length()
+        if c_pow2 != c:
+            pad = (0, c_pow2 - c)
+            hi = torch.nn.functional.pad(hi, pad, value=SENTINEL)
+            lo = torch.nn.functional.pad(lo, pad, value=SENTINEL)
+            val = torch.nn.functional.pad(val, pad, value=_INT32_MAX)
+        if hi.is_cuda:
+            sort_rows.launches += 1
+            out = bitonic.sort_rows_cuda(
+                hi.contiguous(), lo.contiguous(), val.contiguous()
+            )
+        else:
+            _require_cpu(hi, "sort_rows")
+            out = bitonic.sort_rows_plain(hi, lo, val)
+        return tuple(t[:, :c] for t in out)
 
 
 KERNEL_WRAPPERS = (encode_keys, rmi_bucket, sort_rows, bucket_histogram)
+# resets of the callers' counters (``core.learned_sort.reset_counters``),
+# appended by their modules: the kernels import none of their callers
+COUNTER_RESETS: list = []
 
 
 def reset_launches() -> None:
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+    for reset in COUNTER_RESETS:
+        reset()
 
 
 reset_launches()
