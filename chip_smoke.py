@@ -825,7 +825,9 @@ def phase_per_partition(torch, inp: str, refsum: int, want: str,
     not overflow.  Then each kernel is held against its plain version on
     the chain's own model and partitions, kept as the chain ran, and the
     row sorter is timed at the chain's rows."""
-    from repro_torch.core import encoding, external, learned_sort, validate
+    from repro_torch.core import (
+        encoding, external, learned_sort, partition, validate,
+    )
     from repro_torch.core.config import SortConfig
     from repro_torch.data import gensort
     from repro_torch.kernels import bitonic, ops, rmi
@@ -910,9 +912,8 @@ def phase_per_partition(torch, inp: str, refsum: int, want: str,
         require(err == 0, f"RMI kernel on a {hi.shape[0]}-key partition of "
                           f"{runs[r][0]} differs from its plain version by "
                           f"{err}")
-        hi_m, lo_m, val_m, counts = learned_sort.grid_rows(
-            model, hi, lo, nb, cap
-        )
+        counts = partition.bucket_histogram(ids, nb)
+        hi_m, lo_m, val_m = learned_sort.grid_rows(hi, lo, ids, counts, cap)
         got = bitonic.sort_rows_cuda(hi_m, lo_m, val_m)
         err = max_abs_err(torch, got,
                           bitonic.sort_rows_plain(hi_m, lo_m, val_m))

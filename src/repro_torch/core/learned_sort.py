@@ -6,12 +6,15 @@ sort and the comparison oracle (port of
 path (``executor="per_partition"``):
 
   1. the RMI kernel predicts an equi-depth minor-bucket id per key,
-  2. a stable counting-sort permutation groups records by bucket
-     (``partition.bucket_matrix`` -> an ``(n_buckets, capacity)`` grid,
-     SENTINEL-padded),
-  3. the row-sort kernel sorts each row by ``(hi, lo, val)`` — the
+  2. the ids are counted (``partition.bucket_histogram``) and the
+     counts tested against the row width; a bucket over it sends the
+     call to the stable fallback, which sorts the words alone,
+  3. otherwise a stable counting-sort permutation groups records by
+     bucket (``partition.bucket_grid``, from the counts of step 2 ->
+     an ``(n_buckets, capacity)`` grid, SENTINEL-padded),
+  4. the row-sort kernel sorts each row by ``(hi, lo, val)`` — the
      paper's touch-up and base-case sort in one,
-  4. the rows are compacted back into one array.
+  5. the rows are compacted back into one array.
 
 Monotone model + per-bucket sort => globally sorted, with no merge.
 The batched executor's grid graph (``kernels/fused.py``) is the port's
@@ -19,12 +22,13 @@ main device path; this chain is the dispatch-count baseline.
 
 Each call runs inside a ``repro_torch.sort_device`` profiler span, and
 each step inside one of its own (``core.stages.stats.span``):
-``rmi_bucket`` and ``sort_rows`` (in ``kernels/ops``), ``grid``,
-``overflow_test``, ``compact`` and ``fallback``.  Plain ``int``
-counters on :func:`sort_device` count its ``calls`` and ``records``, and
-of those the ``fallback_calls`` and ``fallback_records`` that the stable
-fallback sorted; :func:`reset_counters` sets them to 0, and so does
-``ops.reset_launches``.
+``rmi_bucket`` and ``sort_rows`` (in ``kernels/ops``), ``overflow_test``
+(the count, the compare and the host sync), then ``grid`` and
+``compact`` on a row-sorted call or ``fallback`` on one that overflowed.
+Plain ``int`` counters on :func:`sort_device` count its ``calls`` and
+``records``, and of those the ``fallback_calls`` and ``fallback_records``
+that the stable fallback sorted; :func:`reset_counters` sets them to 0,
+and so does ``ops.reset_launches``.
 """
 
 from __future__ import annotations
@@ -76,28 +80,25 @@ def grid_shape(
 
 
 def grid_rows(
-    model: rmi.RMIParams,
     hi: torch.Tensor,
     lo: torch.Tensor,
-    n_buckets: int,
+    bucket: torch.Tensor,
+    counts: torch.Tensor,
     capacity: int,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Steps 1-2 of the chain: bucket ids by the RMI wrapper, then the
-    ``(n_buckets, capacity)`` grid ``(hi_m, lo_m, val_m, counts)``.
-    Empty slots hold SENTINEL words and ``val = n``, so that real
-    records (``val < n``) win the ``val`` tiebreak against padding even
-    when their own words are SENTINEL (callers pad inputs with it)."""
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Step 3 of the chain: the ``(n_buckets, capacity)`` grid ``(hi_m,
+    lo_m, val_m)`` of the records by their bucket ids and the ids'
+    ``counts`` (``partition.bucket_histogram``'s).  Empty slots hold
+    SENTINEL words and ``val = n``, so that real records (``val < n``)
+    win the ``val`` tiebreak against padding even when their own words
+    are SENTINEL (callers pad inputs with it)."""
     n = hi.shape[0]
-    bucket = ops.rmi_bucket(model, hi, lo, n_buckets)
-    with span("repro_torch.grid"):
-        gather_idx, valid, counts = partition.bucket_matrix(
-            bucket, n_buckets, capacity
-        )
-        gather = gather_idx.to(torch.int64)
-        hi_m = torch.where(valid, hi[gather], SENTINEL)
-        lo_m = torch.where(valid, lo[gather], SENTINEL)
-        val_m = torch.where(valid, gather_idx, n)
-    return hi_m, lo_m, val_m, counts
+    gather_idx, valid = partition.bucket_grid(bucket, counts, capacity)
+    gather = gather_idx.to(torch.int64)
+    hi_m = torch.where(valid, hi[gather], SENTINEL)
+    lo_m = torch.where(valid, lo[gather], SENTINEL)
+    val_m = torch.where(valid, gather_idx, n)
+    return hi_m, lo_m, val_m
 
 
 def sort_device(
@@ -118,33 +119,38 @@ def sort_device(
     row-sort kernels on a CUDA tensor (``model`` must be on the same
     device), their plain versions on a CPU tensor.  The reference picks
     its fast path or its stable fallback inside the graph
-    (``lax.cond``); here the row counts are read on the host once the
-    RMI has bucketed the keys, one wait on the device per call, and
-    the rows are sorted only when no bucket overflowed.  Under overflow
-    (a bucket over ``capacity``, e.g. a duplicate flood, or the SENTINEL
-    padding of a partition that is not a power of two, which all lands
-    in the last bucket) the answer is the stable ``(hi, lo)`` sort of
-    the whole input.  Either way the result is the reference's, bit
-    for bit.
+    (``lax.cond``); here the RMI's bucket ids are counted and the counts
+    read on the host before any grid is built, one wait on the device
+    per call, and the grid is built and its rows sorted only when no
+    bucket overflowed.  Under overflow (a bucket over
+    ``capacity``, e.g. a duplicate flood, or the SENTINEL padding of a
+    partition that is not a power of two, which all lands in the last
+    bucket) the answer is the stable ``(hi, lo)`` sort of the whole
+    input, and no grid is built.  Either way the result is the
+    reference's, bit for bit: its ``lax.cond`` tests the same counts.
     """
     n = hi.shape[0]
     sort_device.calls += 1
     sort_device.records += n
     with span("repro_torch.sort_device"):
         n_buckets, capacity = grid_shape(n, n_buckets, capacity_factor)
-        hi_m, lo_m, val_m, counts = grid_rows(
-            model, hi, lo, n_buckets, capacity
-        )
+        bucket = ops.rmi_bucket(model, hi, lo, n_buckets)
         with span("repro_torch.overflow_test"):
+            counts = partition.bucket_histogram(bucket, n_buckets)
             overflow = bool((counts > capacity).any())
+        # the ids are freed once read, before either path's sort
         if overflow:
+            del bucket
             sort_device.fallback_calls += 1
             sort_device.fallback_records += n
             # full comparison sort — correct under any skew/duplicates
             with span("repro_torch.fallback"):
                 out = sort_oracle(hi, lo)
         else:
-            rows = ops.sort_rows(hi_m, lo_m, val_m)
+            with span("repro_torch.grid"):
+                grid = grid_rows(hi, lo, bucket, counts, capacity)
+            del bucket
+            rows = ops.sort_rows(*grid)
             with span("repro_torch.compact"):
                 out = _compact(*rows, counts, n)
     return (*out, overflow) if return_overflow else out

@@ -41,26 +41,46 @@ def take_by_bucket(bucket_ids: torch.Tensor) -> torch.Tensor:
     return torch.sort(bucket_ids, stable=True).indices
 
 
+def _extents(
+    bucket_ids: torch.Tensor, counts: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(perm, starts): grouped permutation + each bucket's first slot in
+    it, from the ids and their ``counts``."""
+    starts = torch.cumsum(counts, 0, dtype=torch.int32) - counts
+    return take_by_bucket(bucket_ids), starts
+
+
 def bucket_offsets(
     bucket_ids: torch.Tensor, n_buckets: int
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(perm, starts, counts): grouped permutation + per-bucket extents."""
     counts = bucket_histogram(bucket_ids, n_buckets)
-    starts = torch.cumsum(counts, 0, dtype=torch.int32) - counts
-    return take_by_bucket(bucket_ids), starts, counts
+    return (*_extents(bucket_ids, counts), counts)
 
 
 def bucket_matrix(
     bucket_ids: torch.Tensor, n_buckets: int, capacity: int
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gather indices arranging records into a ``(n_buckets, capacity)``
-    grid: ``(gather_idx, valid, counts)``.
+    grid: ``(gather_idx, valid, counts)``, :func:`bucket_histogram`'s
+    counts and :func:`bucket_grid` built from them.
 
     ``gather_idx[b, c]`` indexes the source array (0 for invalid slots)
     and ``valid[b, c]`` marks real records.  Records beyond ``capacity``
     in an overflowing bucket land in one extra slot that is dropped, so
     they are NOT represented — callers check ``counts > capacity``."""
-    perm, starts, counts = bucket_offsets(bucket_ids, n_buckets)
+    counts = bucket_histogram(bucket_ids, n_buckets)
+    return (*bucket_grid(bucket_ids, counts, capacity), counts)
+
+
+def bucket_grid(
+    bucket_ids: torch.Tensor, counts: torch.Tensor, capacity: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`bucket_matrix`'s ``(gather_idx, valid)`` from the bucket
+    ids and their ``counts`` (:func:`bucket_histogram`'s), so a caller
+    that has tested the counts need not count again."""
+    n_buckets = counts.shape[0]
+    perm, starts = _extents(bucket_ids, counts)
     dev = bucket_ids.device
     n = bucket_ids.shape[0]
     pos = torch.arange(n, dtype=torch.int64, device=dev)
@@ -79,7 +99,6 @@ def bucket_matrix(
     return (
         gather_idx[:-1].reshape(n_buckets, capacity),
         valid[:-1].reshape(n_buckets, capacity),
-        counts,
     )
 
 

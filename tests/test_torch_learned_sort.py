@@ -20,6 +20,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core import encoding as jenc  # noqa: E402
 from repro.core import external as jext  # noqa: E402
 from repro.core import learned_sort as jls  # noqa: E402
+from repro.core import partition as jpart  # noqa: E402
 from repro.core import rmi as jrmi  # noqa: E402
 from repro.core.format import LineFormat as JLineFormat  # noqa: E402
 from repro.data import gensort, lines  # noqa: E402
@@ -105,6 +106,59 @@ def test_forced_overflow_bit_equal_to_jax(capacity_factor):
                                      *_torch_words(hi, lo),
                                      return_overflow=True, **kw)
     assert overflow == (capacity_factor < 1)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w).astype(np.int64))
+
+
+def _path_case(kind: str):
+    """(u32 hi, u32 lo, JAX model) of one corpus for the path decision;
+    the model is fitted on real records alone."""
+    rng = np.random.default_rng(5)
+    if kind == "spike":
+        # 60 % one key, the rest uniform: only that key's bucket floods
+        n = 4096
+        hi = rng.integers(0, 1 << 30, size=n, dtype=np.uint32)
+        lo = rng.integers(0, 1 << 32, size=n, dtype=np.uint32)
+        hi[: n * 6 // 10], lo[: n * 6 // 10] = 0x1234_5678, 0x9ABC_DEF0
+        perm = rng.permutation(n)
+        hi, lo = hi[perm], lo[perm]
+    else:
+        # "padded": 5,000 records, padded below to 8,192
+        n = 5000 if kind == "padded" else 4096
+        keys = (gensort.skewed_keys if kind == "skewed"
+                else gensort.uniform_keys)(n, seed=3)
+        if kind == "flood":
+            keys = np.repeat(keys[:1], n, axis=0)
+        hi, lo = jenc.encode_np(keys)
+    model = jrmi.fit_encoded(hi[:256], lo[:256], n_leaf=64)
+    if kind == "padded":
+        # SENTINEL words, as ``executor.sort_partition`` pads a
+        # partition: the padding floods the last bucket
+        fill = np.full(8192 - n, SENTINEL, dtype=np.uint32)
+        hi, lo = np.concatenate([hi, fill]), np.concatenate([lo, fill])
+    return hi, lo, model
+
+
+@pytest.mark.parametrize(
+    "kind,overflows",
+    [("uniform", False), ("flood", True), ("padded", True),
+     ("spike", True), ("skewed", True)],
+)
+def test_sort_device_path_is_the_references_verdict(kind, overflows):
+    """The port tests the bucket counts before it builds any grid: the
+    ``overflow`` it returns is the reference's verdict (``bucket_matrix``'s
+    counts over capacity, on the reference's bucket ids), and on either
+    path its answer is the reference's ``sort_device``, bit for bit."""
+    hi, lo, jmodel = _path_case(kind)
+    jhi, jlo = jnp.asarray(hi), jnp.asarray(lo)
+    n_buckets, capacity = tls.grid_shape(hi.shape[0])
+    ids = jrmi.predict_bucket(jmodel, jhi, jlo, n_buckets)
+    counts = jpart.bucket_matrix(ids, n_buckets, capacity)[2]
+    want = jls.sort_device(jmodel, jhi, jlo, use_kernels=False)
+    *got, overflow = tls.sort_device(trmi.params_from_numpy(jmodel),
+                                     *_torch_words(hi, lo),
+                                     return_overflow=True)
+    assert overflow == bool(np.any(np.asarray(counts) > capacity)) == overflows
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w).astype(np.int64))
 

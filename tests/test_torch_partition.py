@@ -39,6 +39,13 @@ def test_bucket_matrix_equal_jax(n, n_buckets, capacity):
     np.testing.assert_array_equal(perm_t.numpy(), np.asarray(perm_j))
     np.testing.assert_array_equal(starts_t.numpy(), np.asarray(starts_j))
     np.testing.assert_array_equal(counts_t.numpy(), np.asarray(counts_j))
+    # the grid built from the counts alone is the reference's grid too
+    ids_t = torch.from_numpy(ids)
+    gg, vg = tpart.bucket_grid(
+        ids_t, tpart.bucket_histogram(ids_t, n_buckets), capacity
+    )
+    np.testing.assert_array_equal(vg.numpy(), np.asarray(vj))
+    np.testing.assert_array_equal(gg.numpy(), np.asarray(gj))
 
 
 def test_routing_helpers_equal_jax():

@@ -30,9 +30,11 @@ ROWS_TREE = {
     "repro_torch.sort_device": None,
     "repro_torch.encode_keys": None,
 }
+# the flood's overflow is known from the counts: no grid is built
 FLOOD_TREE = {
     **{k: v for k, v in ROWS_TREE.items()
-       if k not in ("repro_torch.sort_rows", "repro_torch.compact")},
+       if k not in ("repro_torch.grid", "repro_torch.sort_rows",
+                    "repro_torch.compact")},
     "repro_torch.fallback": "repro_torch.sort_device",
 }
 
@@ -90,21 +92,25 @@ def test_the_distributed_step_is_counted():
     assert _counters()["records"] == out_width
 
 
+def _program_span(e):
+    """The name of the innermost program span enclosing event ``e``."""
+    p = e.cpu_parent
+    while p is not None and not p.name.startswith("repro_torch."):
+        p = p.cpu_parent
+    return p.name if p else None
+
+
 def _parents(prof) -> dict:
     """Each ``repro_torch.*`` span's innermost enclosing program span."""
     out = {}
     for e in prof.events():
-        if not e.name.startswith("repro_torch."):
-            continue
-        p = e.cpu_parent
-        while p is not None and not p.name.startswith("repro_torch."):
-            p = p.cpu_parent
-        out.setdefault(e.name, set()).add(p.name if p else None)
+        if e.name.startswith("repro_torch."):
+            out.setdefault(e.name, set()).add(_program_span(e))
     return out
 
 
 CPU = [torch.profiler.ProfilerActivity.CPU]
-STEPS = ("rmi_bucket", "grid", "overflow_test", "sort_rows", "compact",
+STEPS = ("rmi_bucket", "overflow_test", "grid", "sort_rows", "compact",
          "fallback")
 
 
@@ -120,6 +126,42 @@ def test_spans_nest_under_sort_device(kind, tree):
               if e.name.startswith("repro_torch.")}
     steps = [s for s in STEPS if "repro_torch." + s in tree]
     assert sorted(steps, key=lambda s: starts["repro_torch." + s]) == steps
+
+
+def _ops_by_span(prof) -> dict:
+    """``(innermost program span, aten op) -> count`` of one trace."""
+    out: dict = {}
+    for e in prof.events():
+        if not e.name.startswith("repro_torch."):
+            key = (_program_span(e), e.name)
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
+@pytest.mark.parametrize("kind", ["rows", "flood"])
+def test_one_count_and_one_sync_a_call_both_before_the_grid(kind):
+    """Each call counts the bucket ids once (one ``scatter_add_``) and
+    waits on the device once (one ``_local_scalar_dense``), both inside
+    ``overflow_test``; the grid reuses the counts, and a call that
+    overflows builds no grid at all (no ``scatter_``, no span)."""
+    _sort(kind)
+    with torch.profiler.profile(activities=CPU) as prof:
+        _sort(kind)
+    ops_ = _ops_by_span(prof)
+
+    def count(op, span=None):
+        return sum(v for (s, o), v in ops_.items()
+                   if o == op and span in (None, s))
+
+    for op in ("aten::_local_scalar_dense", "aten::scatter_add_"):
+        assert count(op) == count(op, "repro_torch.overflow_test") == 1
+        assert count(op, "repro_torch.grid") == 0
+    names = {e.name for e in prof.events()}
+    if kind == "flood":
+        assert count("aten::scatter_") == 0
+        assert "repro_torch.grid" not in names
+    else:
+        assert count("aten::scatter_", "repro_torch.grid") == 2
 
 
 def test_no_profiler_no_span(monkeypatch):
