@@ -9,6 +9,12 @@ is paid per run, as in the benchmark).  Prints one JSON line a run:
 the seed, the path, ``correct`` and the numbers compared.  ``program`` is
 the program's own path, for the lower readings.  The benchmark's own
 runs never run this.
+
+A cell on several cards (``chips`` over 1) runs every seed and path in
+one set of rank processes (``mesh_harness.control``): the model and the
+sorts are set up once, a pool is made for each seed, and each path has
+a window of ``--seconds`` and the distributed check; its paths are
+``controls.MESH_CONTROLS``, ``controls.MESH_FAULTS`` and ``program``.
 """
 
 from __future__ import annotations
@@ -34,6 +40,18 @@ def main(argv=None) -> int:
     from perfbench import controls, harness, manifest
 
     cell = manifest.cell(manifest.load(ROOT), args.workload, ROOT)
+    if cell.chips > 1:
+        from perfbench import mesh_harness
+
+        if args.device == "cuda":
+            from repro_torch.kernels import build
+
+            build.library()
+        for line in mesh_harness.control(cell, [int(s) for s in args.seeds.split(",")],
+                                         args.paths.split(","), args.seconds,
+                                         device=args.device):
+            print(json.dumps(line), flush=True)
+        return 0
     program = harness.program_sort()
     for seed in (int(s) for s in args.seeds.split(",")):
         for name in args.paths.split(","):

@@ -108,3 +108,137 @@ def fault(kind: str, program):
 
 def sort_for(name: str, program):
     return control(name) if name in CONTROLS else fault(name, program)
+
+
+# ------------------------------------------------------------ multi-rank
+#
+# A rank's timed path is ``call(fn, keys, val) -> (hi_s, lo_s, val_s,
+# n_valid, lost)`` (``mesh_harness.program_call``); each of these puts one
+# in the program's place on every rank (``mesh_call_for``).
+#
+# * controls: the program with the local sort of each rank computed on a
+#   key that breaks the configuration's order, ``hi32`` (the first 4 key
+#   bytes) and ``f64`` (the 8 bytes rounded to a float64);
+# * faults planted in one rank's answer: ``drop`` (its last record left
+#   out), ``dup`` (one payload twice), ``swap`` (ranks 0 and 1 hand back
+#   each other's segment), ``reverse`` (its segment reversed),
+#   ``altered`` (one output word + 1), ``lost`` (one record reported
+#   lost);
+# * faults of the whole step: ``unchanged`` (every rank's input returned
+#   in its own order), ``half`` (half of every rank's records left out)
+#   and ``noexchange`` (the exchange between cards left out: each rank
+#   sorts its own records, by the program's sort over a one-rank mesh).
+
+MESH_CONTROLS = ("hi32", "f64")
+MESH_FAULTS = ("drop", "dup", "swap", "reverse", "altered", "lost", "unchanged", "half",
+               "noexchange")
+
+
+def _local_sort(key: str):
+    """``learned_sort.sort_device``'s place: a stable sort of ``(hi, lo)``
+    on a key that breaks the configuration's order."""
+
+    def sort_device(model, hi, lo, **kw):
+        if key == "hi32":
+            perm = torch.sort(hi, stable=True).indices
+        else:
+            perm = torch.sort(hi.to(torch.float64) * 4294967296.0 + lo.to(torch.float64),
+                              stable=True).indices
+        return hi[perm], lo[perm], perm.to(torch.int32)
+
+    return sort_device
+
+
+def _swap_with(out, peer: int):
+    """``out`` exchanged whole with rank ``peer``'s (a collective of the
+    two)."""
+    import torch.distributed as dist
+
+    got = [torch.empty_like(x) for x in out]
+    ops = [dist.P2POp(dist.isend, x.contiguous(), peer) for x in out]
+    ops += [dist.P2POp(dist.irecv, g, peer) for g in got]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return tuple(got)
+
+
+def _one_rank(kind: str, out):
+    """The fault ``kind`` planted in ``out`` on rank 0 (``drop``: on the
+    last rank)."""
+    hi, lo, val, n_valid, lost = (x.clone() for x in out)
+    k = int(n_valid[0])
+    if kind == "drop":
+        n_valid -= 1
+    elif kind == "dup":
+        val[1] = val[0]
+    elif kind == "reverse":
+        for x in (hi, lo, val):
+            x[:k] = x[:k].flip(0)
+    elif kind == "altered":
+        lo[k // 2] += 1
+    elif kind == "lost":
+        lost += 1
+    return hi, lo, val, n_valid, lost
+
+
+def mesh_call_for(name: str, program, st):
+    """The call that puts ``name`` in the program's place on this rank;
+    ``program`` is the program's own call, ``st`` the rank
+    (``mesh_harness.Rank``)."""
+    from repro_torch.core import distributed, learned_sort
+    from repro_torch.launch import mesh
+
+    if name == "program":
+        return program
+    if name in MESH_CONTROLS:
+        def call(fn, keys, val):
+            real = learned_sort.sort_device
+            learned_sort.sort_device = _local_sort(name)
+            try:
+                return program(fn, keys, val)
+            finally:
+                learned_sort.sort_device = real
+
+        return call
+    if name in ("drop", "dup", "reverse", "altered", "lost"):
+        target = st.world - 1 if name == "drop" else 0
+
+        def call(fn, keys, val):
+            out = program(fn, keys, val)
+            return _one_rank(name, out) if st.rank == target else out
+
+        return call
+    if name == "swap":
+        def call(fn, keys, val):
+            out = program(fn, keys, val)
+            return _swap_with(out, 1 - st.rank) if st.rank < 2 else out
+
+        return call
+    if name == "unchanged":
+        def call(fn, keys, val):
+            hi, lo = reference.encode_words(keys)
+            one = torch.ones(1, dtype=torch.int32, device=keys.device)
+            return hi, lo, val, one * keys.shape[0], one * 0
+
+        return call
+    if name == "half":
+        def call(fn, keys, val):
+            hi, lo, v, n_valid, lost = program(fn, keys, val)
+            return hi, lo, v, n_valid // 2, lost
+
+        return call
+    if name == "noexchange":
+        alone = mesh.DataMesh(None, 0, 1, st.dev)
+        fns: dict = {}
+
+        def call(fn, keys, val):
+            n = keys.shape[0]
+            if n not in fns:
+                fns[n] = distributed.make_sort_fn(
+                    alone, ("data",), st.model, n,
+                    capacity_factor=st.cfg["capacity_factor"],
+                    pre_shuffle=st.cfg["pre_shuffle"])
+            return program(fns[n], keys, val)
+
+        return call
+    raise ValueError(f"unknown path {name!r}")

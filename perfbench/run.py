@@ -9,6 +9,10 @@ last line of standard output is one JSON object (``correct``,
 ``breakdown``, and last ``checks``: each number compared beside its
 limit); the last lines of standard error are the same checks.
 
+A cell on several cards runs one process a rank (``mesh_harness``); this
+process builds the kernel library, starts them, relays their logs and
+prints rank 0's line.
+
 The program's kernel library is built into, and loaded from,
 ``src/repro_torch/_build/`` in the checkout; any other cache goes under
 ``perfbench/.cache/``.  Nothing is written elsewhere.
@@ -58,6 +62,11 @@ def main(argv=None) -> int:
             f"device_count={torch.cuda.device_count()}"
         )
         return 2
+    if cell.chips > 1:  # one process a rank, each on its own card
+        from perfbench import mesh_harness
+
+        return mesh_harness.main(cell, args.seed, args.seconds, bool(args.trace),
+                                 t_start=T_START)
     torch.cuda.set_device(0)
     import repro_torch  # noqa: F401  (the program under test: fail before any work)
 

@@ -4,7 +4,9 @@ Nothing is written to disk.  From the raw kineto events (one Python
 object an event; ``key_averages`` would build a tree and take minutes
 at 10^5-10^6 events) :func:`stop` takes
 
-* the window: the harness's ``perfbench.window`` span;
+* the window: the harness's ``perfbench.window`` span, less any
+  ``perfbench.pause`` span in it (the harness's own work with the clock
+  stopped, such as copying a checked answer to the host);
 * the device's work: kernels, copies and fills, clipped to the window;
   ``busy_s`` is the length of their union;
 * the idle gaps of the device inside the window, each named by what the
@@ -19,6 +21,7 @@ import re
 from pathlib import Path
 
 WINDOW = "perfbench.window"
+PAUSE = "perfbench.pause"
 _GLOBAL = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\s*\([^)]*\)\s*)?(\w+)")
 _DEVICE_WORK = ("kernel", "memcpy", "memset")
 
@@ -87,6 +90,21 @@ def _union(intervals: list) -> list:
     return out
 
 
+def _minus(t0: int, t1: int, cuts: list) -> list:
+    """``[t0, t1)`` less the sorted, disjoint intervals ``cuts``."""
+    out, t = [], t0
+    for s, e in cuts:
+        s, e = max(s, t0), min(e, t1)
+        if e <= s:
+            continue
+        if s > t:
+            out.append((t, s))
+        t = max(t, e)
+    if t1 > t:
+        out.append((t, t1))
+    return out
+
+
 def _label(stack: list) -> str:
     """The innermost open host op; a runtime call is named with its op."""
     if not stack:
@@ -141,26 +159,25 @@ def stop(prof) -> Trace:
         raise RuntimeError(f"expected one {WINDOW} span, found {len(spans)}")
     w = spans[0]
     w0, w1, tid = w.start_ns(), w.start_ns() + w.duration_ns(), w.start_thread_id()
+    pauses = _union([(e.start_ns(), e.start_ns() + e.duration_ns()) for e in events
+                     if e.name() == PAUSE and e.device_type() == DeviceType.CPU
+                     and e.start_thread_id() == tid])
+    segments = _minus(w0, w1, pauses)
     device, host = [], []
     for e in events:
         s, d = e.start_ns(), e.duration_ns()
         if e.device_type() == DeviceType.CUDA:
             if d > 0 and _is_work(e):
-                a, b = max(s, w0), min(s + d, w1)
-                if b > a:
-                    device.append((e.name(), a, b))
+                for g0, g1 in segments:
+                    a, b = max(s, g0), min(s + d, g1)
+                    if b > a:
+                        device.append((e.name(), a, b))
         elif e.start_thread_id() == tid and e is not w and s >= w0 and s < w1:
             host.append((s, s + d, e.name()))
     busy = _union([(s, e) for _, s, e in device])
-    gaps, t = [], w0
-    for s, e in busy:
-        if s > t:
-            gaps.append((t, s))
-        t = max(t, e)
-    if w1 > t:
-        gaps.append((t, w1))
+    gaps = [g for g0, g1 in segments for g in _minus(g0, g1, busy)]
     return Trace(
-        window_s=(w1 - w0) / 1e9,
+        window_s=sum(g1 - g0 for g0, g1 in segments) / 1e9,
         busy_s=sum(e - s for s, e in busy) / 1e9,
         device=device,
         idle_by_host=_attribute(gaps, host),
