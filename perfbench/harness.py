@@ -245,6 +245,18 @@ def run_cell(
         calls=calls, window_s=window_s, setup_s=setup_s, peak_bytes=peak, base_bytes=base,
         trace=tr, port_kernels=trace.port_kernel_names(manifest.ROOT / "src" / "repro_torch" / "csrc"),
     )
+    return result_line(cell, ctx, traced, attempted=n_calls, failed=failed, totals=totals,
+                       limits=reference.LIMITS, memory_peak_bytes=max(peak, setup_peak))
+
+
+def result_line(cell: manifest.Cell, ctx: Context, traced: bool, *, attempted: int,
+                failed: int, totals: dict, limits: dict, memory_peak_bytes: int) -> dict:
+    """A run's result line: the cell's metrics read from ``ctx`` (its
+    per-layer ones when ``traced``), the device, and last the check's
+    ``totals`` beside their ``limits``, which also go to standard error
+    as its last lines."""
+    cuda = ctx.device_name != "cpu"
+    tr = ctx.trace
     metrics = {}
     for m in cell.per_layer if traced else cell.end_to_end:
         v = manifest.reader(m["name"])(ctx)
@@ -254,28 +266,28 @@ def run_cell(
         "platform": "gpu" if cuda else "cpu",
         "kind": ctx.device_name,
         "count": 1,
-        "memory_peak_bytes": max(peak, setup_peak),
+        "memory_peak_bytes": memory_peak_bytes,
     }
     if tr is not None:
         dev_info.update(busy_s=tr.busy_s, window_s=tr.window_s)
     if cuda:
+        from repro_torch.kernels import build
+
         # a checkout's first run builds the kernel library: its seconds
         # are in setup_s, and here apart (0 where it was loaded from cache)
         dev_info["build_s"] = build.build_info["seconds"] if build.build_info.get("compiled") else 0.0
         dev_info["name_power_limit"] = _power_limit()
         log(f"device: {dev_info['name_power_limit']}")
     result = {
-        "correct": not any(v > reference.LIMITS[k] for k, v in totals.items()),
-        "attempted": n_calls,
+        "correct": not any(v > limits[k] for k, v in totals.items()),
+        "attempted": attempted,
         "failed": failed,
         "metrics": metrics,
         "device": dev_info,
     }
     if tr is not None:
         result["breakdown"] = {"device_ops": tr.top_ops(), "idle_gaps": tr.top_gaps()}
-    result["checks"] = {
-        k: {"value": v, "limit": reference.LIMITS[k]} for k, v in totals.items()
-    }
+    result["checks"] = {k: {"value": v, "limit": limits[k]} for k, v in totals.items()}
     for k, v in totals.items():
-        log(f"check {k} {v} limit {reference.LIMITS[k]}")
+        log(f"check {k} {v} limit {limits[k]}")
     return result

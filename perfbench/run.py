@@ -11,11 +11,14 @@ limit); the last lines of standard error are the same checks.
 
 A cell on several cards runs one process a rank (``mesh_harness``); this
 process builds the kernel library, starts them, relays their logs and
-prints rank 0's line.
+prints rank 0's line.  A one-card cell runs in this process, through
+the driver its mix names (``perfbench/drivers/<name>.py``) or, without
+one, ``harness.run_cell``.
 
 The program's kernel library is built into, and loaded from,
-``src/repro_torch/_build/`` in the checkout; any other cache goes under
-``perfbench/.cache/``.  Nothing is written elsewhere.
+``src/repro_torch/_build/`` in the checkout; any other cache, and a
+driver's data files, go under ``perfbench/.cache/``.  Nothing is
+written elsewhere.
 """
 
 import time
@@ -70,7 +73,7 @@ def main(argv=None) -> int:
     torch.cuda.set_device(0)
     import repro_torch  # noqa: F401  (the program under test: fail before any work)
 
-    result = harness.run_cell(
+    result = manifest.runner(cell)(
         cell, args.seed, args.seconds, bool(args.trace),
         device="cuda", t_start=T_START,
     )
