@@ -67,13 +67,16 @@ Phases, one line each (any failure exits non-zero):
    file under the batched and the mesh executors (sha256 equal to the
    host executor's, std/mean of the ranges below 0.35, RMI launched on
    every rank) and running ``make_sort_fn`` at 2**20 keys a rank.  Every
-   kernel launch of (a) and (b) — the router's RMI, the final pass's
-   encode, RMI and row sorter, also where the pass then took the stable
-   fallback — is kept as the path made it and held bit-equal to its
-   plain version on those inputs, and (a)'s final-pass rows are timed.
+   kernel launch of (a) and (b) — the router's RMI and histogram, the
+   final pass's encode, RMI, histogram and row sorter, also where the
+   pass then took the stable fallback — is kept as the path made it and
+   held bit-equal to its plain version on those inputs, and (a)'s
+   final-pass rows are timed.
    Each ``make_sort_fn`` run holds the global order to ``np.lexsort``,
-   loses nothing, and holds the RMI kernel to its plain version on the
-   words each rank received;
+   loses nothing, holds every kernel launch of the run (the route's
+   RMI and histogram over 4-5 bins, ``sort_device``'s over the padded
+   slots) bit-equal to its plain version, and the RMI kernel to its
+   plain version on the words each rank received;
 11. lm (run last) — the LM serving path, ``repro_torch.serve.engine
    .ServeEngine`` on the card: (a) qwen3-4b at full width and depth
    (36 layers, d 2560, 32 heads / 8 kv, vocab 151,936; 4,411,424,256
@@ -109,8 +112,11 @@ Phases, one line each (any failure exits non-zero):
    (c) All ten archs at smoke size on the card against the host with
    the same parameters: forward and prefill logits within 5e-2 (the CPU
    tests' tolerance), served tokens under the token rule,
-   ``bucket_matrix`` on the MoE archs' expert ids bit for bit.  The four
-   sorter kernels launch 0 times while serving.  Phase 11 runs under
+   ``bucket_matrix`` on the MoE archs' expert ids bit for bit.  While
+   serving, the encode, RMI and row-sort kernels launch 0 times, and the
+   histogram kernel once a MoE dispatch on the card (the dispatch's
+   count, ``partition.bucket_matrix``), each launch held bit-equal to
+   its plain version on the ids it was given.  Phase 11 runs under
    ``torch.inference_mode()``: serving records no autograd graph;
 12. train (after phase 11) — the LM training path,
    ``repro_torch.train.train_loop.build_train_step`` (the launcher's
@@ -138,8 +144,10 @@ Phases, one line each (any failure exits non-zero):
    one step's loss within 5e-2 and update within the reference's
    microbatch check (dd < 0.35 d1), also at microbatches=2 on yi-9b;
    ``launch.train.train`` on the card stopped and resumed from its
-   checkpoint replays the uninterrupted losses within 2e-2.  The four
-   sorter kernels launch 0 times while training (``launches_train``).
+   checkpoint replays the uninterrupted losses within 2e-2.  While
+   training, the encode, RMI and row-sort kernels launch 0 times, and the
+   histogram kernel once a MoE dispatch on the card (forward and remat
+   recompute), each launch held as in phase 11 (``launches_train``).
 13. mesh (after phase 12) — the sharded LM step (``sharding/spmd.py``:
    DTensor parameters, optimizer state and batch laid out by
    ``sharding.rules``): (a) qwen3-4b at full width and depth
@@ -1179,9 +1187,11 @@ def phase_ops_fixed(torch, tmp: str) -> None:
 def sort_fn_check(torch, mesh, n: int) -> dict:
     """``make_sort_fn`` over ``mesh`` at ``n`` skewed keys a rank (every
     rank makes the whole input from one seed and takes its shard): the
-    global order against ``np.lexsort``, ``lost``, the launches, and the
-    RMI kernel against its plain version on the words the rank received,
-    captured as ``sort_device`` got them."""
+    global order against ``np.lexsort``, ``lost``, the launches, every
+    kernel launch held bit-equal to its plain version on the inputs the
+    path gave it (the route's and ``sort_device``'s), and the RMI kernel
+    against its plain version on the words the rank received, captured
+    as ``sort_device`` got them."""
     import numpy as np
 
     from repro_torch.core import distributed, encoding, learned_sort, rmi
@@ -1206,19 +1216,24 @@ def sort_fn_check(torch, mesh, n: int) -> dict:
     try:
         fn = distributed.make_sort_fn(mesh, ("data",), model, n)
         ops.reset_launches()
-        t0 = time.perf_counter()
-        out = fn(*args)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = launch_counts()
+        with keep_launches() as launched:
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = launch_counts()
     finally:
         learned_sort.sort_device = chain
+    held = hold_kept(torch, launched, f"(c) rank {rank}")
+    require_held(held, launches, f"(c) rank {rank}")
+    launched.clear()
     m, rh, rl, overflow = kept[0]
     nb, _ = learned_sort.grid_shape(rh.shape[0])
     err = max_abs_err(torch, [krmi.rmi_bucket_cuda(m, rh, rl, nb).cpu()],
                       [krmi.rmi_bucket_plain(m.to("cpu"), rh.cpu(), rl.cpu(), nb)])
     full = [mesh.all_gather(t) for t in out]
     res = {"seconds": seconds, "launches": launches, "rmi_err": err,
+           "held": {k: sorted(set(map(tuple, v))) for k, v in held.items()},
            "fallbacks": int(overflow), "received": rh.shape[0],
            "n_valid": full[3].reshape(-1).tolist(),
            "lost": int(full[4].sum())}
@@ -1233,16 +1248,18 @@ def sort_fn_check(torch, mesh, n: int) -> dict:
 
 @contextlib.contextmanager
 def keep_launches():
-    """While active, every launch of the encode, RMI and row-sort kernels
-    keeps what the path gave the kernel and what it gave back, as
+    """While active, every launch of the encode, RMI, row-sort and
+    histogram kernels keeps what the path gave the kernel and what it
+    gave back, as
     ``(entry, args, outputs)`` in the list it yields — including a
     launch whose result the path then threw away for the stable
     fallback."""
-    from repro_torch.kernels import bitonic, encode, rmi
+    from repro_torch.kernels import bitonic, encode, histogram, rmi
 
     kept, saved = [], []
     for mod, name in ((encode, "encode_cuda"), (rmi, "rmi_bucket_cuda"),
-                      (bitonic, "sort_rows_cuda")):
+                      (bitonic, "sort_rows_cuda"),
+                      (histogram, "histogram_cuda")):
         fn = getattr(mod, name)
         saved.append((mod, name, fn))
 
@@ -1261,20 +1278,23 @@ def keep_launches():
 
 # kept entry -> the wrapper whose launch count it matches
 KEPT_WRAPPER = {"encode_cuda": "encode_keys", "rmi_bucket_cuda": "rmi_bucket",
-                "sort_rows_cuda": "sort_rows"}
+                "sort_rows_cuda": "sort_rows",
+                "histogram_cuda": "bucket_histogram"}
 
 
 def hold_kept(torch, kept: list, what: str) -> dict:
     """Each kept launch's outputs against its kernel's plain version on
     the same inputs, bit for bit (RMI's plain version on the host, as in
-    the other phases).  Returns the shapes held, by wrapper name."""
-    from repro_torch.kernels import bitonic, encode, rmi
+    the other phases).  Returns the shapes held, by wrapper name (the
+    histogram's as ``[ids, bins]``)."""
+    from repro_torch.kernels import bitonic, encode, histogram, rmi
 
     plain = {
         "encode_cuda": encode.encode_plain,
         "rmi_bucket_cuda": lambda p, hi, lo, nb: rmi.rmi_bucket_plain(
             p.to("cpu"), hi.cpu(), lo.cpu(), nb),
         "sort_rows_cuda": bitonic.sort_rows_plain,
+        "histogram_cuda": lambda ids, nb, *_: histogram.histogram_plain(ids, nb),
     }
     held: dict = {}
     for name, args, out in kept:
@@ -1284,6 +1304,8 @@ def hold_kept(torch, kept: list, what: str) -> dict:
         err = max_abs_err(torch, [g.cpu() for g in got],
                           [w.cpu() for w in want])
         shape = list(args[1 if name == "rmi_bucket_cuda" else 0].shape)
+        if name == "histogram_cuda":
+            shape.append(args[1])
         require(err == 0, f"{what}: {name} at {shape} differs from its "
                           f"plain version by {err}")
         held.setdefault(KEPT_WRAPPER[name], []).append(shape)
@@ -1296,6 +1318,40 @@ def require_held(held: dict, launches: dict, what: str) -> None:
         require(len(held.get(name, ())) == launches[name],
                 f"{what}: held {len(held.get(name, ()))} {name} launches "
                 f"of {launches[name]}")
+
+
+@contextlib.contextmanager
+def count_dispatches():
+    """While active, counts in the one-element list it yields the MoE
+    dispatches on the card (``partition.bucket_matrix`` on CUDA ids):
+    on the LM paths each is the histogram kernel's one launch."""
+    from repro_torch.core import partition
+
+    fn, n = partition.bucket_matrix, [0]
+
+    def count(ids, *args):
+        n[0] += ids.is_cuda
+        return fn(ids, *args)
+
+    partition.bucket_matrix = count
+    try:
+        yield n
+    finally:
+        partition.bucket_matrix = fn
+
+
+def require_lm_launches(torch, kept: list, launches: dict, dispatches: int,
+                        what: str) -> None:
+    """An LM path launches no encode, RMI or row-sort kernel, and the
+    histogram kernel once a MoE dispatch, each launch held bit-equal to
+    its plain version."""
+    sorters = {k: launches[k] for k in ("encode_keys", "rmi_bucket", "sort_rows")}
+    require(not any(sorters.values()),
+            f"{what}: a sorter kernel launched {launches}")
+    require(launches["bucket_histogram"] == dispatches,
+            f"{what}: {launches['bucket_histogram']} histogram launches for "
+            f"{dispatches} MoE dispatches")
+    require_held(hold_kept(torch, kept, what), launches, what)
 
 
 def distributed_rank() -> None:
@@ -1374,7 +1430,7 @@ def phase_distributed(torch, inp: str, refsum: int, want: str, n: int,
         os.unlink(out)
         require(sha == want, f"(a) distributed bytes {sha} != main {want}")
         require(st.executor == "batched", f"(a) executor {st.executor}")
-        for name in ("encode_keys", "rmi_bucket", "sort_rows"):
+        for name in ("encode_keys", "rmi_bucket", "sort_rows", "bucket_histogram"):
             require(dist_launches["a_nccl_w1_batched"][name] > 0,
                     f"(a) {name} was never launched")
         held = hold_kept(torch, kept, "(a)")
@@ -1403,7 +1459,8 @@ def phase_distributed(torch, inp: str, refsum: int, want: str, n: int,
         f"order == np.lexsort, lost 0, RMI bit-equal to plain on the "
         f"{c1['received']} received words, sort_device fallbacks "
         f"{c1['fallbacks']} (SENTINEL capacity padding in the last bucket), "
-        f"{c1['seconds']:.3f} s, launches {c1['launches']}")
+        f"{c1['seconds']:.3f} s, launches {c1['launches']}, each held "
+        f"bit-equal to its plain version: {c1['held']}")
 
     # (b), (c) gloo ranks sharing the card
     path = os.path.join(tmp, "dist_b.bin")
@@ -1472,7 +1529,8 @@ def phase_distributed(torch, inp: str, refsum: int, want: str, n: int,
     log(f"dist: (c) make_sort_fn gloo x{DIST_RANKS}, {SORT_FN_KEYS} skewed "
         f"keys a rank: order == np.lexsort, lost 0, n_valid "
         f"{c4[0]['n_valid']}, RMI bit-equal to plain on every rank's "
-        f"received words, sort_device fallbacks "
+        f"received words, every launch held bit-equal (rank 0: "
+        f"{c4[0]['held']}), sort_device fallbacks "
         f"{[c['fallbacks'] for c in c4]}, seconds "
         f"{[round(c['seconds'], 3) for c in c4]}")
     log(f"dist: (b)+(c) job of {DIST_RANKS} ranks {job_s:.1f} s")
@@ -1667,18 +1725,18 @@ def lm_serve(torch, np, cfg, params, prompts, new: int, what: str,
 
     engine = ServeEngine(build_model(cfg), params=params)
     ops.reset_launches()
-    prof = start_device_trace(torch)
-    t0 = time.perf_counter()
-    gen = engine.generate(prompts, new, **(extras or {}))
-    wall = time.perf_counter() - t0
-    launches = launch_counts()
+    with keep_launches() as kept, count_dispatches() as dispatches:
+        prof = start_device_trace(torch)
+        t0 = time.perf_counter()
+        gen = engine.generate(prompts, new, **(extras or {}))
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
     log_device_time(prof, f"lm: {what}", wall)
     st = engine.stats
     b = prompts.shape[0]
     require(st.logits_finite, f"{what}: served logits are not finite")
     require(gen.shape == (b, new), f"{what}: generated {gen.shape}")
-    require(not any(launches.values()),
-            f"{what}: a sorter kernel launched while serving {launches}")
+    require_lm_launches(torch, kept, launches, dispatches[0], f"{what} serving")
     res = dict(
         prefill_ms=st.prefill_seconds * 1e3,
         decode_ms_per_step=st.decode_seconds * 1e3 / max(st.decode_steps, 1),
@@ -1691,7 +1749,8 @@ def lm_serve(torch, np, cfg, params, prompts, new: int, what: str,
         f"{res['decode_ms_per_step']:.2f} ms a step ({st.decode_steps} steps, "
         f"{res['decode_tokens_per_s']:.1f} tokens/s), {res['tokens_per_s']:.1f} "
         f"new tokens/s end to end, peak memory {res['peak_gb']:.2f} GB; "
-        f"sorter kernel launches {launches}")
+        f"kernel launches {launches} for {dispatches[0]} MoE dispatches, each "
+        f"held bit-equal")
     return {"gen": gen, "launches": launches, **res}
 
 
@@ -1938,7 +1997,8 @@ def phase_lm(torch, results: dict) -> None:
         results[key]["launches_lm"] = {
             run: by_name[name] for run, by_name in lm_launches.items()
         }
-    log(f"lm: launches of the four sorter kernels while serving {lm_launches}")
+    log(f"lm: kernel launches while serving (the histogram's: one a MoE "
+        f"dispatch) {lm_launches}")
     log(f"lm: phase {time.perf_counter() - t0:.1f} s")
 
 
@@ -1951,8 +2011,8 @@ def lm_train(torch, np, cfg, params, batch: dict, steps: int, what: str,
     default) under a device trace.  Checks: every
     loss, norm and parameter finite; ``grad_norm`` > 0; the first step's
     ``loss_total`` within ``LM_TOL`` of ``loss_fn`` under
-    ``inference_mode``; the last loss below the first; no sorter kernel
-    launched.  Logs ms a step, tokens/s, peak memory and the device
+    ``inference_mode``; the last loss below the first; the kernels
+    launched as ``require_lm_launches`` says.  Logs ms a step, tokens/s, peak memory and the device
     trace."""
     from repro_torch.kernels import ops
     from repro_torch.models.api import build_model
@@ -1971,18 +2031,19 @@ def lm_train(torch, np, cfg, params, batch: dict, steps: int, what: str,
     ops.reset_launches()
     t0 = time.perf_counter()
     losses, norms, drops, ms = [], [], [], []
-    for i in range(steps):
-        if i == steps - traced:
-            prof, t_trace = start_device_trace(torch), time.perf_counter()
-        t1 = time.perf_counter()
-        _, _, m = step(params, opt_state, batch)
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t1) * 1e3)
-        losses.append(float(m["loss_total"]))
-        norms.append(float(m["grad_norm"]))
-        drops.append(float(m.get("moe_dropped_frac", 0.0)))  # no MoE metrics: 0
-    wall = time.perf_counter() - t0
-    launches = launch_counts()
+    with keep_launches() as kept, count_dispatches() as dispatches:
+        for i in range(steps):
+            if i == steps - traced:
+                prof, t_trace = start_device_trace(torch), time.perf_counter()
+            t1 = time.perf_counter()
+            _, _, m = step(params, opt_state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            losses.append(float(m["loss_total"]))
+            norms.append(float(m["grad_norm"]))
+            drops.append(float(m.get("moe_dropped_frac", 0.0)))  # no MoE metrics: 0
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
     log_device_time(prof, f"train: {what}" + (f" (the last {traced} of {steps} steps)"
                                               if traced < steps else ""),
                     time.perf_counter() - t_trace)
@@ -1993,8 +2054,7 @@ def lm_train(torch, np, cfg, params, batch: dict, steps: int, what: str,
     require(abs(losses[0] - want) <= LM_TOL,
             f"{what}: step 0 loss_total {losses[0]} against loss_fn's {want}")
     require(losses[-1] < losses[0], f"{what}: the loss did not fall: {losses}")
-    require(not any(launches.values()),
-            f"{what}: a sorter kernel launched while training {launches}")
+    require_lm_launches(torch, kept, launches, dispatches[0], f"{what} training")
     n_tok = int(batch["tokens"].numel())
     steady = statistics.median(ms[1:])
     n_moe = sum(k == "moe" for period in params.periods for k in period)
@@ -2003,8 +2063,9 @@ def lm_train(torch, np, cfg, params, batch: dict, steps: int, what: str,
     log(f"train: {what} {steps} steps on {tuple(batch['tokens'].shape)} tokens{frames} in "
         f"{wall:.2f} s: step 0 {ms[0]:.1f} ms, then median {steady:.1f} ms a step "
         f"({[round(x, 1) for x in ms]}), {n_tok / steady * 1e3:.1f} tokens/s; peak "
-        f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; sorter kernel "
-        f"launches {launches}")
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; kernel "
+        f"launches {launches} for {dispatches[0]} MoE dispatches, each held "
+        f"bit-equal")
     log(f"train: {what} loss_total {[round(x, 4) for x in losses]} (loss_fn under "
         f"inference_mode {want:.4f}, step 0 differs by {abs(losses[0] - want):.2e}); "
         f"grad_norm {[round(x, 3) for x in norms]}"
@@ -2165,14 +2226,16 @@ def phase_train(torch, results: dict, runs: str = "abde") -> None:
 
     t1 = time.perf_counter()
     ops.reset_launches()
-    for arch in LM_ARCHS:
-        train_cuda_vs_cpu(torch, np, arch)
-    train_cuda_vs_cpu(torch, np, "yi-9b", microbatches=2)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
-        train_resume_on_card(np, tmp)
-    train_launches["c"] = launch_counts()
-    require(not any(train_launches["c"].values()),
-            f"(c): a sorter kernel launched while training {train_launches['c']}")
+    with keep_launches() as kept, count_dispatches() as dispatches:
+        for arch in LM_ARCHS:
+            train_cuda_vs_cpu(torch, np, arch)
+        train_cuda_vs_cpu(torch, np, "yi-9b", microbatches=2)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+            train_resume_on_card(np, tmp)
+        train_launches["c"] = launch_counts()
+    require_lm_launches(torch, kept, train_launches["c"], dispatches[0],
+                        "(c) training")
+    kept.clear()
     log(f"train: (c) {time.perf_counter() - t1:.1f} s")
     for key, name in (("encode", "encode_keys"), ("rmi_bucket", "rmi_bucket"),
                       ("sort_rows", "sort_rows"),
@@ -2180,7 +2243,8 @@ def phase_train(torch, results: dict, runs: str = "abde") -> None:
         results[key]["launches_train"] = {
             run: by_name[name] for run, by_name in train_launches.items()
         }
-    log(f"train: launches of the four sorter kernels while training {train_launches}")
+    log(f"train: kernel launches while training (the histogram's: one a MoE "
+        f"dispatch) {train_launches}")
     log(f"train: phase {time.perf_counter() - t0:.1f} s")
 
 
@@ -2708,7 +2772,7 @@ def main() -> int:
         res = validate.validate_file(out, refsum, MAIN_RECORDS)
         require(res["ok"], f"1 GB sort failed validation: {res}")
         require(stats.executor == "batched", f"executor {stats.executor}")
-        for name in ("encode_keys", "rmi_bucket", "sort_rows"):
+        for name in ("encode_keys", "rmi_bucket", "sort_rows", "bucket_histogram"):
             require(launches[name] > 0,
                     f"{name} was never launched on the main path")
         m = manifest.load(stats.manifest_path)

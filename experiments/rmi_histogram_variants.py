@@ -263,7 +263,7 @@ def _per_lane(global_ids: int, cluster_ids: int) -> str:
 
 def hist_variants(src: str) -> dict:
     step = src[src.index("    const int first = __shfl_sync("):src.index(
-        "  if (S == kGlobal) return;")]
+        "  if (S == kGlobal) {\n")]
     per_id = (
         "#pragma unroll\n"
         "    for (int r = 0; r < kPerLane<S>; ++r)\n"

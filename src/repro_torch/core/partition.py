@@ -3,8 +3,9 @@ the PyTorch port (port of ``src/repro/core/partition.py``).
 
 The dense ``(n_buckets, capacity)`` grid of :func:`bucket_matrix` is the
 fused grid graph's routing layer.  These are tensor-level operations, not
-kernels: they use PyTorch's stable sort, scatters and cumulative sums,
-and none of them waits on the device.
+kernels, apart from the counts (the histogram kernel through
+``ops.bucket_histogram``): they use PyTorch's stable sort, scatters and
+cumulative sums, and none of them waits on the device.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import encoding, rmi
+from repro_torch.kernels import ops
 
 
 def route_capacity(
@@ -26,13 +28,11 @@ def route_capacity(
 
 
 def bucket_histogram(bucket_ids: torch.Tensor, n_buckets: int) -> torch.Tensor:
-    """Per-bucket counts, (n_buckets,) int32 (a scatter-add: unlike
-    ``torch.bincount`` it never waits on the device for the length)."""
-    counts = torch.zeros(n_buckets, dtype=torch.int32, device=bucket_ids.device)
-    return counts.scatter_add_(
-        0, bucket_ids.to(torch.int64),
-        torch.ones_like(bucket_ids, dtype=torch.int32),
-    )
+    """Per-bucket counts of (N,) int32 ids, (n_buckets,) int32: the
+    histogram kernel on a CUDA tensor, its plain version elsewhere
+    (``ops.bucket_histogram``).  Unlike ``torch.bincount`` it never waits
+    on the device for the length."""
+    return ops.bucket_histogram(bucket_ids, n_buckets)
 
 
 def take_by_bucket(bucket_ids: torch.Tensor) -> torch.Tensor:

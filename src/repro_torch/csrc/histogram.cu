@@ -34,14 +34,24 @@
 //   up to 16 x 58,112 bins, lose to global atomics (an add into another
 //   block's shared memory costs more than an L2 atomic; PERF.md), so the
 //   launch takes any size up to 16 but the geometry picks 2.
-// * global (2**20 bins: 4 MB fits no cluster): one global atomic an id,
-//   resolved in the L2.
+// * global (2**20 bins: 4 MB fits no cluster): global atomics, resolved
+//   in the L2, behind a cache of kCacheSlots bins a block in shared
+//   memory.  A hot bin's atomics serialise on its one L2 address: with
+//   3 % of 2**28 skewed ids in one bin that address, not the bytes, sets
+//   the time (PERF.md).  So each id hashes to a slot of its block's
+//   cache; the first id to meet an empty slot claims it (atomicCAS) and
+//   keeps it, and every later id of that bin adds there by a shared
+//   atomic.  Ids whose slot another bin holds add to the output.  After
+//   its last step the block flushes each nonzero slot with one global
+//   atomic.  A bin with a share of the ids worth caching meets its slot
+//   early, so it is nearly always the one that claims it.
 //
 // In both cluster strategies cluster.sync() separates the phases: after
 // the zeroing (no add before every histogram is zero), before the
 // reduction or flush (every add is done), and, in the shared strategy,
 // after the reduction (no block exits while another still reads its
-// memory).  Equal ids: a warp step whose ids (256 in the cluster
+// memory); in the global one __syncthreads() does the same for the
+// cache.  Equal ids: a warp step whose ids (256 in the cluster
 // strategies, 128 in the global one) are all one in-range id (all-equal
 // ids, or a run of them) makes one add of them all; other steps add an
 // id at a time.  Grouping a warp's equal ids by __match_any_sync and
@@ -64,6 +74,10 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kBlocksPerSm = 2;         // cluster strategies
 constexpr int kGlobalBlocksPerSm = 8;   // global strategy: 2,048 threads
+// global strategy: bins a block caches, a tag and a count each (16 KB, so
+// eight blocks fit an SM; 4,096 slots would leave one out)
+constexpr int kCacheLog2 = 11;
+constexpr int kCacheSlots = 1 << kCacheLog2;
 
 enum Strategy { kGlobal = 0, kShared = 1, kSplit = 2 };
 
@@ -88,7 +102,17 @@ __device__ __forceinline__ void add(int* bins, int slice, int* out, int id,
     int* dst = cg::this_cluster().map_shared_rank(bins, owner);
     atomicAdd(dst + (id - (int)owner * slice), count);
   } else {
-    atomicAdd(out + id, count);
+    int* tag = bins;  // -1: the slot is free
+    const int slot = (int)(((unsigned)id * 2654435761u) >> (32 - kCacheLog2));
+    int held = *(volatile int*)(tag + slot);
+    if (held < 0) {
+      held = atomicCAS(tag + slot, -1, id);
+      if (held < 0) held = id;
+    }
+    if (held == id)
+      atomicAdd(bins + kCacheSlots + slot, count);
+    else
+      atomicAdd(out + id, count);
   }
 }
 
@@ -103,6 +127,12 @@ __global__ void __launch_bounds__(kThreads)
   if (S != kGlobal) {
     for (int b = threadIdx.x; b < block_bins; b += kThreads) bins[b] = 0;
     cg::this_cluster().sync();
+  } else {
+    for (int b = threadIdx.x; b < kCacheSlots; b += kThreads) {
+      bins[b] = -1;
+      bins[kCacheSlots + b] = 0;
+    }
+    __syncthreads();
   }
   const long long warp =
       (long long)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
@@ -127,7 +157,14 @@ __global__ void __launch_bounds__(kThreads)
     for (int r = 0; r < kPerLane<S>; ++r)
       if (v[r] >= 0) add<S>(bins, slice, out, v[r], 1);
   }
-  if (S == kGlobal) return;
+  if (S == kGlobal) {
+    __syncthreads();
+    for (int b = threadIdx.x; b < kCacheSlots; b += kThreads) {
+      const int c = bins[kCacheSlots + b];
+      if (c) atomicAdd(out + bins[b], c);
+    }
+    return;
+  }
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
   const int lo = (int)cluster.block_rank() * slice;
@@ -262,7 +299,8 @@ extern "C" int repro_histogram(const void* ids, long long n, int n_buckets,
         (n + kBlockStep<kGlobal> - 1) / kBlockStep<kGlobal>;
     const long long cap = (long long)kGlobalBlocksPerSm * n_sm;
     hist_kernel<kGlobal><<<(unsigned)(blocks < cap ? blocks : cap), kThreads,
-                           0, s>>>(in, n, n_buckets, 0, 0, o);
+                           2 * kCacheSlots * sizeof(int), s>>>(
+        in, n, n_buckets, 0, 0, o);
   }
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

@@ -6,7 +6,9 @@ source is ``csrc/histogram.cu``; its note says what bounds the kernel
 and its three strategies, which :func:`launch_geometry` chooses: a
 private histogram a block, reduced over a thread-block cluster through
 distributed shared memory, where the bins fit a block; the bins split
-over a cluster of two blocks where they fit two; global atomics beyond.
+over a cluster of two blocks where they fit two; global atomics beyond,
+behind a cache of :data:`CACHE_SLOTS` bins a block that takes a hot
+bin's adds off its one L2 address.
 :func:`histogram_plain` is the plain PyTorch version it is held
 against, bit for bit.
 
@@ -30,6 +32,11 @@ SPLIT_CLUSTER = 2  # in the split strategy
 STRATEGIES = ("global", "shared", "split")  # csrc/histogram.cu's codes
 # csrc/histogram.cu kPerLane<S>: a lane's ids a step; a warp's are 32 x that
 IDS_PER_LANE = {"global": 4, "shared": 8, "split": 8}
+# csrc/histogram.cu kCacheSlots: bins a block caches in the global strategy,
+# each held by the first bin whose id meets it (slot: CACHE_HASH * id mod
+# 2**32, its top log2(CACHE_SLOTS) bits)
+CACHE_SLOTS = 2048
+CACHE_HASH = 2654435761
 
 
 class Geometry(NamedTuple):
@@ -50,7 +57,8 @@ def launch_geometry(n_buckets: int, max_bins: int) -> Geometry:
       block r holds slice r alone, and every block adds into its owner
       (larger clusters, which would hold more bins, lose to global
       atomics: remote adds cost more than L2 atomics);
-    * ``global`` beyond: global atomics."""
+    * ``global`` beyond: global atomics, behind each block's cache of
+      :data:`CACHE_SLOTS` bins in shared memory."""
     if n_buckets < 1:
         raise ValueError(f"n_buckets {n_buckets} < 1")
     if n_buckets <= max_bins:
@@ -90,8 +98,17 @@ def max_block_bins() -> int:
     return _max_bins[dev]
 
 
-def histogram_cuda(ids: torch.Tensor, n_buckets: int) -> torch.Tensor:
-    """(n_buckets,) int32 counts of the in-range ids, by the kernel."""
+def device_geometry(n_buckets: int, device: torch.device) -> Geometry:
+    """:func:`launch_geometry` of ``n_buckets`` bins on CUDA ``device``."""
+    with torch.cuda.device(device):
+        return launch_geometry(n_buckets, max_block_bins())
+
+
+def histogram_cuda(
+    ids: torch.Tensor, n_buckets: int, geo: Geometry | None = None
+) -> torch.Tensor:
+    """(n_buckets,) int32 counts of the in-range ids, by the kernel, in
+    ``geo`` (by default :func:`device_geometry`'s)."""
     if not ids.is_cuda:
         raise ValueError(f"histogram kernel needs a CUDA tensor, got {ids.device}")
     if ids.dtype != torch.int32 or ids.ndim != 1:
@@ -100,10 +117,10 @@ def histogram_cuda(ids: torch.Tensor, n_buckets: int) -> torch.Tensor:
         raise ValueError("ids must be contiguous")
     if not 1 <= n_buckets < 2**31:
         raise ValueError(f"n_buckets {n_buckets} outside [1, 2**31)")
+    geo = geo or device_geometry(n_buckets, ids.device)
     out = torch.empty(n_buckets, dtype=torch.int32, device=ids.device)
     lib = build.library()
     with torch.cuda.device(ids.device):
-        geo = launch_geometry(n_buckets, max_block_bins())
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.repro_histogram(
             ids.data_ptr(), ids.shape[0], int(n_buckets),

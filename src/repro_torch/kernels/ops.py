@@ -9,7 +9,9 @@ no fallback from one to the other.
 
 Each wrapper counts its kernel launches in a plain ``int`` attribute
 (``encode_keys.launches``, ...), bumped only where the kernel launches,
-so a run can show that its main path went through the kernels.
+so a run can show that its main path went through the kernels;
+``bucket_histogram.strategy_launches`` splits its count by the strategy
+each launch took (``histogram.STRATEGIES``).
 :func:`reset_launches` sets every count to 0, and the counters of the
 callers above the kernels that register with it (``COUNTER_RESETS``):
 one call starts every count of the device path at 0.
@@ -100,11 +102,18 @@ def rmi_predict_pos(
 
 def bucket_histogram(ids: torch.Tensor, n_buckets: int) -> torch.Tensor:
     """(n_buckets,) int32 per-bucket counts of (N,) int32 ids; ids outside
-    ``[0, n_buckets)`` never count (the reference's -1 padding)."""
+    ``[0, n_buckets)`` never count (the reference's -1 padding).  A launch
+    is counted in ``launches`` and, under the strategy it took, in
+    ``strategy_launches``.  A ``meta`` tensor (a dry run's trace) takes
+    the plain version: no data, so only the shape."""
     if ids.is_cuda:
+        geo = histogram.device_geometry(n_buckets, ids.device)
+        counts = histogram.histogram_cuda(ids.contiguous(), n_buckets, geo)
         bucket_histogram.launches += 1
-        return histogram.histogram_cuda(ids.contiguous(), n_buckets)
-    _require_cpu(ids, "bucket_histogram")
+        bucket_histogram.strategy_launches[geo.strategy] += 1
+        return counts
+    if not ids.is_meta:
+        _require_cpu(ids, "bucket_histogram")
     return histogram.histogram_plain(ids, n_buckets)
 
 
@@ -142,6 +151,7 @@ COUNTER_RESETS: list = []
 def reset_launches() -> None:
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+    bucket_histogram.strategy_launches = dict.fromkeys(histogram.STRATEGIES, 0)
     for reset in COUNTER_RESETS:
         reset()
 

@@ -11,8 +11,9 @@ tensor it makes — a mask, positions — counts as replicated); DTensor's
 sharding propagation inserts the all-gathers, reductions and
 reduce-scatters.  Ops without a sharding strategy run in ``local_map``
 regions: on replicated inputs (:func:`on_replicas`), the MoE's
-sort-based dispatch (``core.partition.bucket_matrix``, its
-``scatter_add_``) and the index-adds of its combine and load fraction;
+sort-based dispatch (``core.partition.bucket_matrix``: its count by
+the histogram kernel, its scatters) and the index-adds of its combine
+and load fraction;
 on each rank's rows of the batch (:func:`batch_local`,
 :func:`on_batch_heads`, :func:`gather_rows`), the recurrent sublayers
 (Mamba's chunk scan, the xLSTM loops), the attention products (their

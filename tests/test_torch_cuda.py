@@ -30,7 +30,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import encoding, external, learned_sort  # noqa: E402
-from repro_torch.core import operators, rmi as trmi  # noqa: E402
+from repro_torch.core import operators, partition, rmi as trmi  # noqa: E402
 from repro_torch.core.config import SortConfig  # noqa: E402
 from repro_torch.core.encoding import SENTINEL  # noqa: E402
 from repro_torch.core.executor import (  # noqa: E402
@@ -361,6 +361,46 @@ def test_cuda_index_lookups_equal_cpu(cuda, tmp_path):
     cpu.close()
 
 
+def _glue_ids(kind, rng):
+    """(ids, n_buckets, strategy): the patterns the glue counts in the
+    benchmark's cells -- the router's 4 destinations (5 with its discard
+    bucket), a rank's received slots at 2^20 bins whose senders' rows end
+    in runs of the last bin (longer than a grid's stride, so a warp meets
+    a run in many steps), ``sort_device``'s 2^16 bins, and a spike of a
+    few hot bins in random order at 2^17."""
+    if kind in ("route", "route_discard"):
+        nb = 4 if kind == "route" else 5
+        return rng.integers(0, nb, 1 << 22, dtype=np.int32), nb, "shared"
+    if kind == "padding":
+        nb = 1 << 20
+        ids = rng.integers(0, nb, 1 << 25, dtype=np.int32)
+        ids.reshape(4, -1)[:, 1 << 22 :] = nb - 1
+        return ids, nb, "global"
+    if kind == "split":
+        nb = 1 << 16
+        return rng.integers(0, nb, 1 << 22, dtype=np.int32), nb, "split"
+    nb = 1 << 17
+    ids = rng.integers(0, nb, 1 << 22, dtype=np.int32)
+    spike = rng.random(ids.size) < 0.5
+    ids[spike] = rng.choice(rng.integers(0, nb, 9), size=int(spike.sum()))
+    return ids, nb, "global"
+
+
+@pytest.mark.parametrize(
+    "kind", ["route", "route_discard", "padding", "split", "spike"])
+def test_glue_counts_by_the_kernel(cuda, kind):
+    """``partition.bucket_histogram`` on a CUDA tensor launches the
+    histogram kernel once, in the strategy its bin count picks, and its
+    counts equal ``np.bincount``'s."""
+    ids, nb, strategy = _glue_ids(kind, np.random.default_rng(len(kind)))
+    ops.reset_launches()
+    got = partition.bucket_histogram(torch.from_numpy(ids).to(cuda), nb)
+    assert ops.bucket_histogram.launches == 1
+    assert ops.bucket_histogram.strategy_launches[strategy] == 1
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.cpu().numpy(), np.bincount(ids, minlength=nb))
+
+
 def test_wrappers_count_launches(cuda):
     ops.reset_launches()
     keys = torch.from_numpy(gensort.uniform_keys(4096, seed=5)).to(cuda)
@@ -375,6 +415,12 @@ def test_wrappers_count_launches(cuda):
     assert h.shape == (40, 100)
     ops.bucket_histogram(ops.rmi_bucket(model, hi, lo, 16), 16)
     assert [f.launches for f in ops.KERNEL_WRAPPERS] == [1, 2, 1, 1]
+    assert ops.bucket_histogram.strategy_launches == {
+        "global": 0, "shared": 1, "split": 0}
+    # a launch the kernel refuses (int64 ids) is not counted
+    with pytest.raises(ValueError):
+        ops.bucket_histogram(torch.zeros(4, dtype=torch.int64, device=cuda), 4)
+    assert ops.bucket_histogram.launches == 1
     with pytest.raises(ValueError):
         rmi.rmi_bucket_cuda(trmi.fit(gensort.uniform_keys(64), n_leaf=4), hi, lo, 16)
 
@@ -413,8 +459,8 @@ def test_executor_on_card_matches_host(cuda, sizes, dup, kw):
     host = dict(HostSortExecutor(model).sort_iter(enumerate(blocks)))
     for i in range(len(blocks)):
         assert got[i].tobytes() == host[i].tobytes(), i
-    # the histogram kernel is on no path of the sort
-    assert [f.launches for f in ops.KERNEL_WRAPPERS] == [ex.dispatches] * 3 + [0]
+    # every kernel once a dispatch: the histogram counts the grid's rows
+    assert [f.launches for f in ops.KERNEL_WRAPPERS] == [ex.dispatches] * 4
     assert (ex.fallbacks >= 1) == dup
 
 

@@ -67,8 +67,12 @@ def test_plain_version_is_the_cpu_path():
     np.testing.assert_array_equal(
         histogram.histogram_plain(ids, 4).numpy(), [1, 2, 0, 0]
     )
+    # a meta tensor (a dry run's trace) takes the plain version's shape;
+    # the kernel itself takes CUDA tensors alone
+    got = ops.bucket_histogram(torch.empty(4, dtype=torch.int32, device="meta"), 4)
+    assert (got.device.type, got.dtype, tuple(got.shape)) == ("meta", torch.int32, (4,))
     with pytest.raises(ValueError):
-        ops.bucket_histogram(torch.empty(4, dtype=torch.int32, device="meta"), 4)
+        histogram.histogram_cuda(ids, 4)
 
 
 H100 = 58_112  # bins a block's 227 KB hold
@@ -104,6 +108,36 @@ def test_launch_geometry_gives_every_bin_one_owner(n_buckets, strategy, cluster)
         assert (owner[lo:hi] == r).all()
 
 
+@pytest.mark.parametrize(
+    "n_buckets,strategy",
+    [(4, "shared"), (5, "shared"), (1 << 16, "split"), (1 << 17, "global"),
+     (1 << 18, "global"), (1 << 19, "global"), (1 << 20, "global")],
+)
+def test_launch_geometry_of_the_cells(n_buckets, strategy):
+    """The bins the cells count on an H100: the router's 4 destinations
+    (5 with its discard bucket) in one block, ``sort_device``'s 2^16 bins
+    (2^25 records) split over a cluster, 2^17 to 2^20 by global atomics."""
+    assert histogram.launch_geometry(n_buckets, H100).strategy == strategy
+
+
+def test_launches_are_counted_by_strategy():
+    """``reset_launches`` sets the launch count and one count a strategy
+    to 0; the plain version (a CPU or a ``meta`` tensor) launches nothing
+    and counts nothing.  Real launches are counted on the card
+    (``tests/test_torch_cuda.py``: ``test_glue_counts_by_the_kernel``)."""
+    ops.bucket_histogram.launches = 3
+    ops.bucket_histogram.strategy_launches = {"global": 1, "shared": 2, "split": 0}
+    ops.reset_launches()
+    assert ops.bucket_histogram.launches == 0
+    assert ops.bucket_histogram.strategy_launches == dict.fromkeys(
+        histogram.STRATEGIES, 0)
+    ops.bucket_histogram(torch.arange(64, dtype=torch.int32) % 5, 4)
+    ops.bucket_histogram(torch.zeros(64, dtype=torch.int32, device="meta"), 1 << 20)
+    assert ops.bucket_histogram.launches == 0
+    assert ops.bucket_histogram.strategy_launches == dict.fromkeys(
+        histogram.STRATEGIES, 0)
+
+
 def test_launch_geometry_rejects_no_bins():
     with pytest.raises(ValueError):
         histogram.launch_geometry(0, H100)
@@ -115,10 +149,13 @@ def _replay(ids, n_buckets, geo, clusters):
     base + 32 r + l; out-of-range ids and ids past the end read as -1).  A
     step whose ids are all one in-range id adds them at once; other
     steps add each in-range id: into the block's private histogram
-    (shared), the owner's slice (split) or the output (global).  Then a
-    shared cluster's block r sums slice r over the cluster's blocks and
-    flushes it, and a split cluster's block flushes its own slice.
-    Returns the counts and the atomics issued (adds, flushes)."""
+    (shared), the owner's slice (split), or the block's cache slot where
+    the bin holds it and else the output (global; an id that meets a
+    free slot claims it for its bin).  Then a shared cluster's block r
+    sums slice r over the cluster's blocks and flushes it, a split
+    cluster's block flushes its own slice, and a global block each
+    nonzero slot of its cache.  Returns the counts, the adds, the
+    flushes and the adds that went to the output."""
     step = 32 * histogram.IDS_PER_LANE[geo.strategy]
     c = max(geo.cluster, 1)
     warps = clusters * c * 8  # 256 threads a block
@@ -128,12 +165,24 @@ def _replay(ids, n_buckets, geo, clusters):
     padded[(padded < 0) | (padded >= n_buckets)] = -1
     out = np.zeros(n_buckets, np.int64)
     smem = np.zeros((clusters, c, max(geo.block_bins, 1)), np.int64)
-    adds = 0
+    slots = histogram.CACHE_SLOTS
+    shift = 32 - (slots.bit_length() - 1)
+    tags = np.full((clusters * c, slots), -1, np.int64)
+    cache = np.zeros((clusters * c, slots), np.int64)
+    adds = direct = 0
 
     def add(warp, bin_, count):
+        nonlocal direct
         block = warp // 8
         if geo.strategy == "global":
-            out[bin_] += count
+            slot = (int(bin_) * histogram.CACHE_HASH) % 2**32 >> shift
+            if tags[block, slot] < 0:
+                tags[block, slot] = bin_
+            if tags[block, slot] == bin_:
+                cache[block, slot] += count
+            else:
+                out[bin_] += count
+                direct += 1
         elif geo.strategy == "shared":
             smem[block // c, block % c, bin_] += count
         else:
@@ -151,6 +200,10 @@ def _replay(ids, n_buckets, geo, clusters):
             add(warp, b, 1)
             adds += 1
     flushes = 0
+    if geo.strategy == "global":
+        for block, slot in zip(*np.nonzero(cache)):
+            out[tags[block, slot]] += cache[block, slot]
+            flushes += 1
     for cl in range(clusters if geo.strategy != "global" else 0):
         for r in range(c):
             lo, hi = r * geo.slice, min((r + 1) * geo.slice, n_buckets)
@@ -160,7 +213,7 @@ def _replay(ids, n_buckets, geo, clusters):
                 part = smem[cl, r, : hi - lo]
             out[lo:hi] += part
             flushes += int((part != 0).sum())
-    return out.astype(np.int32), adds, flushes
+    return out.astype(np.int32), adds, flushes, direct
 
 
 # (n_buckets, max_bins): limits small enough to reach every strategy at
@@ -174,9 +227,12 @@ REPLAY_CASES = [
 @pytest.mark.parametrize("kind", ["uniform", "equal", "out_of_range", "skewed"])
 @pytest.mark.parametrize("n_buckets,max_bins", REPLAY_CASES)
 def test_replay_equals_jax(n_buckets, max_bins, kind):
-    """The kernel's ownership and its all-equal steps count what the JAX
-    ``histogram_pallas`` (interpret mode) counts; all-equal ids take one
-    add a full warp step, and the flush is never more atomics than ids."""
+    """The kernel's ownership, its all-equal steps and the global
+    strategy's cache count what the JAX ``histogram_pallas`` (interpret
+    mode) counts; all-equal ids take one add a full warp step, the flush
+    is never more atomics than ids, and in the global strategy skewed ids
+    send fewer atomics to the output than uniform ones (their hot bins
+    are cached)."""
     rng = np.random.default_rng(n_buckets)
     n = 5000
     ids = rng.integers(0, n_buckets, size=n, dtype=np.int32)
@@ -190,10 +246,16 @@ def test_replay_equals_jax(n_buckets, max_bins, kind):
     elif kind == "skewed":
         ids = np.minimum(rng.zipf(1.5, size=n) - 1, n_buckets - 1).astype(np.int32)
     geo = histogram.launch_geometry(n_buckets, max_bins)
-    got, adds, flushes = _replay(ids, n_buckets, geo, clusters=2)
+    got, adds, flushes, direct = _replay(ids, n_buckets, geo, clusters=2)
     _, want = _both(ids, n_buckets)
     np.testing.assert_array_equal(got, want)
     step = 32 * histogram.IDS_PER_LANE[geo.strategy]
     if kind == "equal":
         assert adds == n // step + n % step
     assert flushes <= n
+    if geo.strategy == "global" and kind in ("uniform", "skewed"):
+        assert direct + flushes <= n
+        if kind == "skewed":
+            u_ids = rng.integers(0, n_buckets, size=n, dtype=np.int32)
+            _, _, u_flushes, u_direct = _replay(u_ids, n_buckets, geo, clusters=2)
+            assert direct + flushes < u_direct + u_flushes

@@ -64,6 +64,47 @@ def test_routing_helpers_equal_jax():
     )
 
 
+def _cell_ids(kind: str, rng) -> tuple[np.ndarray, int]:
+    """(ids, n_buckets) in the patterns the benchmark's cells count, cut
+    to the CPU: the router's 4 destinations, and 5 with its discard
+    bucket; a rank's received slots at 2^20 bins, the second half of
+    each sender's quarter one run of the last bin (its SENTINEL
+    padding); ids with a spike of a few hot bins, in random order."""
+    if kind in ("route", "route_discard"):
+        n_buckets = 4 if kind == "route" else 5
+        return rng.integers(0, n_buckets, 100_000, dtype=np.int32), n_buckets
+    if kind == "padding":
+        n_buckets = 1 << 20
+        ids = rng.integers(0, n_buckets, 1 << 21, dtype=np.int32)
+        ids.reshape(4, -1)[:, 1 << 18 :] = n_buckets - 1
+        return ids, n_buckets
+    n_buckets = 1 << 17
+    ids = rng.integers(0, n_buckets, 1 << 20, dtype=np.int32)
+    spike = rng.random(ids.size) < 0.5
+    ids[spike] = rng.choice(rng.integers(0, n_buckets, 9), size=int(spike.sum()))
+    return ids, n_buckets
+
+
+@pytest.mark.parametrize("kind", ["route", "route_discard", "padding", "spike"])
+def test_bucket_histogram_counts_the_cells_ids(kind):
+    """The glue's count equals ``np.bincount`` on every id pattern the
+    cells give it, int32, one count a bin."""
+    ids, n_buckets = _cell_ids(kind, np.random.default_rng(len(kind)))
+    got = tpart.bucket_histogram(torch.from_numpy(ids), n_buckets)
+    assert got.dtype == torch.int32 and got.shape == (n_buckets,)
+    np.testing.assert_array_equal(
+        got.numpy(), np.bincount(ids, minlength=n_buckets)
+    )
+
+
+def test_bucket_histogram_on_meta_gives_the_shape():
+    """The dry run traces the MoE dispatch on ``meta`` tensors: the count
+    has the shape and dtype it has on a device, and nothing launches."""
+    ids = torch.empty(4096, dtype=torch.int32, device="meta")
+    got = tpart.bucket_histogram(ids, 8)
+    assert (got.device.type, got.dtype, tuple(got.shape)) == ("meta", torch.int32, (8,))
+
+
 @pytest.mark.parametrize("skewed", [False, True])
 def test_radix_and_model_buckets_equal_jax(skewed):
     keys = (

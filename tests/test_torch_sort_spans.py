@@ -140,7 +140,8 @@ def _ops_by_span(prof) -> dict:
 
 @pytest.mark.parametrize("kind", ["rows", "flood"])
 def test_one_count_and_one_sync_a_call_both_before_the_grid(kind):
-    """Each call counts the bucket ids once (one ``scatter_add_``) and
+    """Each call counts the bucket ids once (one ``scatter_add_``: the
+    histogram's plain version, on the CPU) and
     waits on the device once (one ``_local_scalar_dense``), both inside
     ``overflow_test``; the grid reuses the counts, and a call that
     overflows builds no grid at all (no ``scatter_``, no span)."""
