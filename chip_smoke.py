@@ -19,7 +19,7 @@ Phases, one line each (any failure exits non-zero):
    bitonic at (8192, 1024) — the batch the
    256 MB default budget produces on a 1 GB file (15 partitions of
    ~667k records, two per batch, padded to 1,441,792 slots) — and over a
-   sweep of every width ``fused.plan_batch`` gives, at ~8.4M slots each
+   sweep of every width ``learned_sort.plan_batch`` gives, at ~8.4M slots each
    (``BITONIC_SWEEP``), on random, all-equal, SENTINEL-row, presorted
    and reversed rows, each width timed against ``torch.sort``; histogram
    at 1,441,792 ids over 8192, 58,113, the split strategy's top bin
@@ -221,8 +221,8 @@ IDENTITY_RECORDS = 1_000_000
 # one power-of-two partition: the per-partition chain pads nothing
 POW2_RECORDS = 1 << 20
 # the grid's rows per batch; one bin past a block's shared memory (the
-# split strategy); 8 blocks' shared memory (global); fused.Q_RES (the
-# split strategy's top bin count, read from the device, is added)
+# split strategy); 8 blocks' shared memory (global); learned_sort.Q_RES
+# (the split strategy's top bin count, read from the device, is added)
 HIST_BINS = (8192, 58_113, 464_896, 1 << 20)
 HALF = 666_896  # records of the batch's first partition
 # 4,096 points (four waves of 1,024), not 10,000: each hit costs 24-38 ms
@@ -240,8 +240,9 @@ OPS_LINES, OPS_DUP, OPS_BUDGET = 1_000_000, 16, 64 << 20
 # a 500 MB join: 2.5M gensort-stride records a side
 OPS_FIXED = 2_500_000
 OPS_SELECTIVITY = 0.1
-# row widths fused.plan_batch gives: 512-1024 below 4.2M slots, 2048-4096
-# above, 8-256 for small batches of many segments; and the widest row
+# row widths learned_sort.plan_batch gives: 512-1024 below 4.2M slots,
+# 2048-4096 above, 8-256 for small batches of many segments; and the
+# widest row
 BITONIC_SWEEP = ((16384, 512), (8192, 1024), (4096, 2048), (2048, 4096),
                  (1_048_576, 8), (2, 16384))
 # the distributed phase: gloo ranks sharing the card, their file, and the
@@ -382,9 +383,10 @@ def phase_kernels(torch, dev) -> dict:
     """Each kernel against its plain version at the main path's shapes."""
     import numpy as np
 
-    from repro_torch.core import encoding, rmi as rmi_lib
+    from repro_torch.core import encoding, learned_sort, rmi as rmi_lib
+    from repro_torch.core.learned_sort import Q_RES
     from repro_torch.data import gensort
-    from repro_torch.kernels import bitonic, encode, fused, rmi
+    from repro_torch.kernels import bitonic, encode, rmi
 
     results: dict = {}
     n = BATCH
@@ -437,8 +439,8 @@ def phase_kernels(torch, dev) -> dict:
                 hi, lo = encode.encode_cuda(
                     torch.from_numpy(k[:, :8].copy()).to(dev)
                 )
-                got = rmi.rmi_bucket_cuda(model, hi, lo, fused.Q_RES)
-                want = rmi.rmi_bucket_plain(model, hi, lo, fused.Q_RES)
+                got = rmi.rmi_bucket_cuda(model, hi, lo, Q_RES)
+                want = rmi.rmi_bucket_plain(model, hi, lo, Q_RES)
                 torch.cuda.synchronize()
                 err = max_abs_err(torch, [got], [want])
                 require(err == 0, f"RMI kernel (L={n_leaf}, {dist}, "
@@ -448,14 +450,14 @@ def phase_kernels(torch, dev) -> dict:
                     torch, "repro_rmi_bucket", hi, lo, n,
                     int(model.min_hi), int(model.min_lo),
                     float(model.inv_range), float(model.root_slope),
-                    float(model.root_intercept), fused.Q_RES,
+                    float(model.root_intercept), Q_RES,
                     model.kernel_table, n_leaf, got,
                 )
                 ms = cuda_ms(torch, launch)
                 warm = cuda_ms(torch, launch, cold=False)
                 plain = cuda_ms(
                     torch,
-                    lambda: rmi.rmi_bucket_plain(model, hi, lo, fused.Q_RES),
+                    lambda: rmi.rmi_bucket_plain(model, hi, lo, Q_RES),
                     reps=5,
                 )
                 # kept at n x 20 B + L x 36 B (the split tables' bytes) so
@@ -485,14 +487,14 @@ def phase_kernels(torch, dev) -> dict:
     seg = torch.from_numpy(
         (np.arange(n) >= HALF).astype(np.int32)
     ).to(dev)
-    n_rows, capacity = fused.plan_batch(n, 15)
+    n_rows, capacity = learned_sort.plan_batch(n, 15)
     require((n_rows, capacity) == (8192, 1024), f"plan {n_rows}x{capacity}")
     alloc = np.ones(2, np.int64) + (n_rows - 2) * np.array([HALF, n - HALF]) // n
     plan = np.zeros(2 * 15, np.int32)
     plan[15:17] = alloc
     plan[1] = alloc[0]
     plan_d = torch.from_numpy(plan).to(dev)
-    _, _, hi_m, lo_m, val_m, counts = fused.grid_rows(
+    _, _, hi_m, lo_m, val_m, counts = learned_sort.segmented_grid_rows(
         model_main, keys_b, seg, plan_d[:15], plan_d[15:],
         n_rows=n_rows, capacity=capacity,
     )

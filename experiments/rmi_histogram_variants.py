@@ -70,8 +70,9 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.core import rmi as rmi_lib  # noqa: E402
+from repro_torch.core.learned_sort import Q_RES  # noqa: E402
 from repro_torch.data import gensort  # noqa: E402
-from repro_torch.kernels import build, encode, fused, histogram, rmi  # noqa: E402
+from repro_torch.kernels import build, encode, histogram, rmi  # noqa: E402
 
 N = 1_441_792  # keys of a main-path batch
 HALF = 666_896  # records of its first partition
@@ -393,7 +394,7 @@ def rmi_cases(dev):
         for key_order, kk in (("generation", k),
                               ("routed", k[np.argsort(kv, kind="stable")][order])):
             hi, lo = encode.encode_cuda(torch.from_numpy(kk[:, :8].copy()).to(dev))
-            yield f"L={N_LEAF} {dist} {key_order}", model, hi, lo, fused.Q_RES
+            yield f"L={N_LEAF} {dist} {key_order}", model, hi, lo, Q_RES
         if dist == "skewed":
             hi, lo = encode.encode_cuda(torch.from_numpy(k[:64, :8].copy()).to(dev))
             yield "serving 64 keys", model, hi, lo, SERVE_BUCKETS

@@ -8,22 +8,22 @@ An executor consumes a stream of ``(tag, RecordBlock)`` items and yields
 * :class:`HostSortExecutor` — the host LearnedSort (``sort_host``), one
   NumPy pass per partition, zero device dispatches.  Its output defines
   byte-identity.
-* :class:`PerPartitionDeviceExecutor` — the historical device path: one
-  ``learned_sort.sort_device`` chain (RMI kernel → bucket grid → row
-  sort kernel → compaction) per partition, padded to a power of two,
-  with one wait on the device each.  The baseline the batched executor
-  is measured against.
-* :class:`BatchedDeviceExecutor` — packs partitions into fixed-shape
-  super-batches with segment ids and sorts each with one call of the
-  fused graph (``kernels/fused.py``): on a CUDA device the grid graph
-  through the encode, RMI and bitonic kernels.  Dispatches are
-  double-buffered (:data:`PIPELINE_DEPTH` in flight): while the card
-  sorts batch *k*, the host packs batch *k+1* into a pinned staging
-  buffer and uploads it with a non-blocking copy, and batch *k−1*'s
-  permutation comes back by a non-blocking copy into pinned memory.
-  A CUDA event recorded after each upload gates the reuse of that
-  batch's staging buffer, so the host never overwrites bytes a copy
-  has not yet read.
+* :class:`PerPartitionDeviceExecutor` — one call of
+  ``learned_sort.sort_device`` (RMI kernel → bucket grid → row sort
+  kernel → compaction), the sort of one array that the benchmark times
+  and the distributed step runs on each rank, per partition, padded to
+  a power of two, with one wait on the device each.
+* :class:`BatchedDeviceExecutor` — ``sort_file``'s device path: packs
+  partitions into fixed-shape super-batches with segment ids and sorts
+  each with one call of ``learned_sort``'s super-batch graph: on a CUDA
+  device the grid through the encode, RMI and bitonic kernels.
+  Dispatches are double-buffered (:data:`PIPELINE_DEPTH` in flight):
+  while the card sorts batch *k*, the host packs batch *k+1* into a
+  pinned staging buffer and uploads it with a non-blocking copy, and
+  batch *k−1*'s permutation comes back by a non-blocking copy into
+  pinned memory.  A CUDA event recorded after each upload gates the
+  reuse of that batch's staging buffer, so the host never overwrites
+  bytes a copy has not yet read.
 
 * :class:`MeshBatchedExecutor` — the flat segmented sort run on every
   rank of a data mesh (``launch/mesh.DataMesh``), one collective group
@@ -45,7 +45,6 @@ import torch
 from repro_torch.core import encoding, learned_sort, rmi
 from repro_torch.core.encoding import ENCODED_BYTES, SENTINEL
 from repro_torch.core.format import RecordBlock
-from repro_torch.kernels import fused, ops
 
 # Partitions per super-batch: one dispatch covers up to this many segments.
 MAX_SEGMENTS = 32
@@ -312,21 +311,24 @@ class _Slot:
 
 
 class BatchedDeviceExecutor(SortExecutor):
-    """Batched executor: super-batch packing + one fused sort per batch,
+    """Batched executor, ``sort_file``'s device path: super-batch packing
+    + one call of ``learned_sort``'s super-batch graph per batch,
     double-buffered across ``PIPELINE_DEPTH`` in-flight dispatches
     (DESIGN.md §10, §12).
 
     Two dispatch shapes behind the same packing/epilogue protocol:
 
     * **grid** (CUDA devices, or ``use_kernels`` on the CPU): encode
-      kernel → fused RMI kernel → per-segment remap → row-wise bitonic
-      kernel (``kernels/fused.grid_fast_path``); on CPU tensors the
-      kernels' plain versions run.  Overflow → the stable fallback,
-      counted in ``fallbacks``.
-    * **flat** (the CPU default without ``use_kernels``): one stable
-      ``(seg, hi, lo)`` sort.
+      kernel → RMI kernel → per-segment remap → the grid fill, row sort
+      kernel and compaction of ``sort_device``
+      (``learned_sort.grid_fast_path``); on CPU tensors the kernels'
+      plain versions run.  Overflow → the stable fallback, counted in
+      ``fallbacks``.
+    * **flat** (the CPU default without ``use_kernels``): encode + one
+      stable ``(seg, hi, lo)`` sort (``learned_sort.flat_segmented_sort``).
 
-    Both pack into size-bucketed static shapes (``fused.pad_target``).
+    Both pack into size-bucketed static shapes
+    (``learned_sort.pad_target``).
     On a CUDA device the grid always runs the kernels.  ``device``
     defaults to the card and raises where there is none."""
 
@@ -365,8 +367,8 @@ class BatchedDeviceExecutor(SortExecutor):
     # -- packing -------------------------------------------------------
 
     def _dispatch(self, entries: list) -> tuple:
-        """Pack ``entries`` into one batch and launch the fused graph
-        (asynchronously on a CUDA device)."""
+        """Pack ``entries`` into one batch and launch the super-batch
+        graph (asynchronously on a CUDA device)."""
         slot = self._slots[self._next_slot]
         self._next_slot = (self._next_slot + 1) % self.depth
         sizes = [b.n_records for _, b in entries]
@@ -402,7 +404,7 @@ class BatchedDeviceExecutor(SortExecutor):
             dev = slot.upload(nbytes)
             keys_d = dev[:n_key].view(n_pad, ENCODED_BYTES)
             seg_d = dev[n_key:n_seg].view(torch.int32)
-            slot.fetch(self._flat_sort(keys_d, seg_d), None)
+            slot.fetch(learned_sort.flat_segmented_sort(keys_d, seg_d), None)
             return entries, n_pad, slot, None
         pad = n_pad - total
         pad_share = np.zeros(k, dtype=np.int64)
@@ -427,7 +429,7 @@ class BatchedDeviceExecutor(SortExecutor):
                 ]
                 seg[p : p + m] = s
                 p += m
-        n_rows, capacity = fused.plan_batch(n_pad, s_max)
+        n_rows, capacity = learned_sort.plan_batch(n_pad, s_max)
         # proportional row allocation: every segment gets >= 1 private
         # row, the rest go out by size (padding included)
         alloc_sizes = np.asarray(sizes, dtype=np.int64) + pad_share
@@ -441,7 +443,7 @@ class BatchedDeviceExecutor(SortExecutor):
         keys_d = dev[:n_key].view(n_pad, ENCODED_BYTES)
         seg_d = dev[n_key:n_seg].view(torch.int32)
         plan_d = dev[n_seg:].view(torch.int32)
-        perm_d, overflow_d, hi_d, lo_d = fused.grid_fast_path(
+        perm_d, overflow_d, hi_d, lo_d = learned_sort.grid_fast_path(
             self.model,
             keys_d,
             seg_d,
@@ -454,13 +456,10 @@ class BatchedDeviceExecutor(SortExecutor):
         return entries, n_pad, slot, (seg_d, hi_d, lo_d)
 
     def _pad_width(self, total: int) -> int:
-        return fused.pad_target(total)
+        return learned_sort.pad_target(total)
 
     def _count_flat(self, n_pad: int, total: int) -> None:
         self._count_dispatch(n_pad, total, ("flat", n_pad))
-
-    def _flat_sort(self, keys: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
-        return fused.flat_segmented_sort(keys, seg)
 
     def _finish(self, handle: tuple):
         """Fetch one batch's permutation and emit its sorted blocks."""
@@ -469,7 +468,7 @@ class BatchedDeviceExecutor(SortExecutor):
         if overflowed:
             # the reference's lax.cond fallback: stable (seg, hi, lo)
             self.fallbacks += 1
-            perm = fused.stable_segmented_perm(*words).cpu().numpy()
+            perm = learned_sort.stable_segmented_perm(*words).cpu().numpy()
         yield from _split_sorted(entries, perm, "segmented sort")
 
     # -- stream protocol ----------------------------------------------
@@ -503,11 +502,11 @@ class MeshBatchedExecutor(BatchedDeviceExecutor):
     ``terasort.sort_file_distributed``, the range it owns, which is where
     the reference's rule puts it — and the ranks dispatch in lockstep:
     for each group, one all-gather of the ranks' loads fixes the shared
-    padded width ``n_pad = fused.pad_target(max load)``, and every rank
-    sorts its shard, padded to it, through the batched executor's flat
-    dispatch (pinned staging, non-blocking copies, ``depth`` batches in
-    flight) on its own device: the encode kernel, then the stable
-    ``(seg, hi, lo)`` sort (``fused.stable_segmented_perm``, hazard c),
+    padded width ``n_pad = learned_sort.pad_target(max load)``, and every
+    rank sorts its shard, padded to it, through the batched executor's
+    flat dispatch (pinned staging, non-blocking copies, ``depth`` batches
+    in flight) on its own device: the encode kernel, then the stable
+    ``(seg, hi, lo)`` sort (``learned_sort.flat_segmented_sort``, hazard c),
     then the memcmp touch-up.  No collective runs inside the sort:
     records already sit on their owner ranks.  A rank with no blocks
     left joins the rounds with an empty shard until every rank is done,
@@ -557,10 +556,6 @@ class MeshBatchedExecutor(BatchedDeviceExecutor):
         self._count_dispatch(self.n_dev * n_pad, self._round[1],
                              ("mesh", self.n_dev, n_pad))
 
-    def _flat_sort(self, keys: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
-        hi, lo = ops.encode_keys(keys)
-        return fused.stable_segmented_perm(seg, hi, lo)
-
     def _agree(self, entries: "list | None") -> bool:
         """One collective round's agreement: every rank's load fixes the
         shared padded width.  False once no rank has a group left."""
@@ -568,7 +563,7 @@ class MeshBatchedExecutor(BatchedDeviceExecutor):
         loads = self.mesh.all_gather_ints([load, entries is not None])
         if not loads[:, 1].any():
             return False
-        n_pad = fused.pad_target(max(int(loads[:, 0].max()), 1))
+        n_pad = learned_sort.pad_target(max(int(loads[:, 0].max()), 1))
         self._round = (n_pad, int(loads[:, 0].sum()))
         return True
 

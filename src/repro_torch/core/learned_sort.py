@@ -1,24 +1,23 @@
-"""LearnedSort (paper §3.4): the per-partition device chain, the host
-sort and the comparison oracle (port of
-``src/repro/core/learned_sort.py``).
+"""LearnedSort (paper §3.4) on the device, one array or a super-batch
+of partitions, plus the host sort and the comparison oracle (port of
+``src/repro/core/learned_sort.py`` and ``src/repro/kernels/fused.py``).
 
-:func:`sort_device` is the historical one-partition-at-a-time device
-path (``executor="per_partition"``):
+:func:`sort_device` sorts one array.  The benchmark times it, it is the
+local sort of the distributed step (``distributed.make_sort_fn``), and
+the per-partition executor runs it once a partition:
 
   1. the RMI kernel predicts an equi-depth minor-bucket id per key,
   2. the ids are counted (``partition.bucket_histogram``) and the
      counts tested against the row width; a bucket over it sends the
      call to the stable fallback, which sorts the words alone,
   3. otherwise a stable counting-sort permutation groups records by
-     bucket (``partition.bucket_grid``, from the counts of step 2 ->
-     an ``(n_buckets, capacity)`` grid, SENTINEL-padded),
+     bucket (:func:`grid_rows`, from the counts of step 2 -> an
+     ``(n_buckets, capacity)`` grid, SENTINEL-padded),
   4. the row-sort kernel sorts each row by ``(hi, lo, val)`` — the
      paper's touch-up and base-case sort in one,
   5. the rows are compacted back into one array.
 
 Monotone model + per-bucket sort => globally sorted, with no merge.
-The batched executor's grid graph (``kernels/fused.py``) is the port's
-main device path; this chain is the dispatch-count baseline.
 
 Each call runs inside a ``repro_torch.sort_device`` profiler span, and
 each step inside one of its own (``core.stages.stats.span``):
@@ -29,6 +28,28 @@ Plain ``int`` counters on :func:`sort_device` count its ``calls`` and
 ``records``, and of those the ``fallback_calls`` and ``fallback_records``
 that the stable fallback sorted; :func:`reset_counters` sets them to 0,
 and so does ``ops.reset_launches``.
+
+The **super-batch** graph is ``sort_file``'s device path: the batched
+executor packs partitions into one padded batch with segment ids and
+sorts it in one call (DESIGN.md §10, §12).  Two shapes:
+
+* the **grid** (:func:`grid_fast_path`): encode kernel → RMI kernel at
+  ``Q_RES`` → re-centring of the CDF position onto the segment's own
+  rows → the same grid fill, row sort and compaction as
+  :func:`sort_device` → a permutation.  Eager PyTorch has no in-graph
+  branch (the reference's ``lax.cond``) without waiting on the device,
+  so the fast path always runs and returns the overflow flag as a
+  device tensor; the caller reads it with the permutation and takes
+  :func:`stable_segmented_perm` only when it is set
+  (:func:`fused_segmented_sort` does so at once).  The result is the
+  reference's on every input.  The remap runs in float32 and is safe
+  by monotonicity, as the reference's docstring explains (a segment's
+  band is at most ``Q_RES = 2**20`` wide).
+* the **flat** (:func:`flat_segmented_sort`): encode + one stable
+  ``(seg, hi, lo)`` sort.
+
+Kernels run on CUDA tensors and their plain versions on CPU tensors
+(the reference's ``use_kernels`` switch is the tensor's device here).
 """
 
 from __future__ import annotations
@@ -41,9 +62,26 @@ from repro_torch.core.encoding import SENTINEL
 from repro_torch.core.stages.stats import span
 from repro_torch.kernels import ops
 
+# Super-batch grid: target mean records per row (~4x headroom in
+# ``capacity``), the row-count cap that bounds the grid, and the CDF
+# quantization resolution (static, shape-independent).
+ROW_TARGET = 256
+MAX_ROWS = 1 << 14
+Q_RES = 1 << 20
+
 
 def _next_pow2(x: int) -> int:
     return 1 << max(0, (x - 1)).bit_length()
+
+
+def _flat_index(counts: torch.Tensor, n: int, c: int) -> torch.Tensor:
+    """(n,) int64 slots of a ``c``-wide grid that hold each row's first
+    ``counts`` entries, row after row: the compaction's gather index."""
+    ends = torch.cumsum(counts.to(torch.int64), 0)
+    starts = ends - counts
+    pos = torch.arange(n, dtype=torch.int64, device=counts.device)
+    row = torch.searchsorted(ends, pos, right=True)
+    return row * c + pos - starts[row]
 
 
 def _compact(
@@ -54,17 +92,17 @@ def _compact(
     n: int,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(f, c) sorted rows + per-row valid counts -> (n,) concatenated."""
-    c = hi_m.shape[1]
-    ends = torch.cumsum(counts.to(torch.int64), 0)
-    starts = ends - counts
-    pos = torch.arange(n, dtype=torch.int64, device=hi_m.device)
-    row = torch.searchsorted(ends, pos, right=True)
-    flat = row * c + pos - starts[row]
+    flat = _flat_index(counts, n, hi_m.shape[1])
     return (
         hi_m.reshape(-1)[flat],
         lo_m.reshape(-1)[flat],
         val_m.reshape(-1)[flat],
     )
+
+
+def _key_order(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """Stable ``(hi, lo)``-ascending permutation, int64."""
+    return torch.sort(encoding.packed_key(hi, lo), stable=True).indices
 
 
 def grid_shape(
@@ -86,9 +124,9 @@ def grid_rows(
     counts: torch.Tensor,
     capacity: int,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Step 3 of the chain: the ``(n_buckets, capacity)`` grid ``(hi_m,
-    lo_m, val_m)`` of the records by their bucket ids and the ids'
-    ``counts`` (``partition.bucket_histogram``'s).  Empty slots hold
+    """The ``(n_buckets, capacity)`` grid ``(hi_m, lo_m, val_m)`` of the
+    records by their bucket ids and the ids' ``counts``
+    (``partition.bucket_histogram``'s), for both graphs.  Empty slots hold
     SENTINEL words and ``val = n``, so that real records (``val < n``)
     win the ``val`` tiebreak against padding even when their own words
     are SENTINEL (callers pad inputs with it)."""
@@ -167,8 +205,129 @@ def sort_oracle(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Reference comparison sort: stable by (hi, lo); returns the sorted
     words and the int32 permutation."""
-    perm = torch.sort(encoding.packed_key(hi, lo), stable=True).indices
+    perm = _key_order(hi, lo)
     return hi[perm], lo[perm], perm.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Super-batch graph: many partitions, told apart by segment ids
+# ---------------------------------------------------------------------------
+
+
+def pad_target(n: int) -> int:
+    """Size-bucketed static batch size: the next multiple of 1/16th of
+    the enclosing power of two (min quantum 8) — at most 12.5% padding
+    and O(log) distinct shapes."""
+    p = _next_pow2(max(n, 8))
+    q = max(p // 16, 8)
+    return -(-n // q) * q
+
+
+def plan_batch(n_pad: int, max_segments: int) -> tuple[int, int]:
+    """Static grid shape ``(n_rows, capacity)`` for a padded batch; a
+    pure function of ``n_pad``.  ``n_rows >= max_segments`` gives every
+    segment at least one private row."""
+    n_rows = _next_pow2(
+        max(max_segments, min(n_pad // ROW_TARGET, MAX_ROWS))
+    )
+    capacity = _next_pow2(max(8, 4 * max(1, n_pad // n_rows)))
+    return n_rows, capacity
+
+
+def stable_segmented_perm(
+    seg: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor
+) -> torch.Tensor:
+    """Stable ``(seg, hi, lo)``-ascending permutation, int32: two stable
+    passes, least significant key first (the packed ``(hi, lo)`` word,
+    then ``seg``), so ties keep input order."""
+    by_key = _key_order(hi, lo)
+    by_seg = torch.sort(seg[by_key], stable=True).indices
+    return by_key[by_seg].to(torch.int32)
+
+
+def segmented_grid_rows(
+    model: rmi.RMIParams,
+    keys: torch.Tensor,  # (n_pad, 8) uint8 — ENCODED_BYTES key prefixes
+    seg: torch.Tensor,  # (n_pad,) int32 segment ids
+    row_base: torch.Tensor,  # (max_segments,) int32 first row per segment
+    rows_per_seg: torch.Tensor,  # (max_segments,) int32 rows per segment
+    *,
+    n_rows: int,
+    capacity: int,
+):
+    """The grid graph up to the row sort: encode and RMI kernels, the
+    per-segment remap, the count and :func:`grid_rows`.  Returns ``(hi,
+    lo, hi_m, lo_m, val_m, counts)``; ``val_m`` ascends along each row."""
+    s_max = row_base.shape[0]
+    hi, lo = ops.encode_keys(keys)
+    q = ops.rmi_bucket(model, hi, lo, Q_RES)
+    # per-segment local frame: re-centre q on the band the segment's
+    # keys actually occupy (a batch sees a slice of the key space)
+    seg64 = seg.to(torch.int64)
+    qmin = torch.full((s_max,), Q_RES, dtype=torch.int32, device=q.device)
+    qmin = qmin.scatter_reduce(0, seg64, q, "amin")
+    qmax = torch.zeros(s_max, dtype=torch.int32, device=q.device)
+    qmax = qmax.scatter_reduce(0, seg64, q, "amax")
+    band = torch.clamp(qmax - qmin, min=0) + 1
+    frac = (q - qmin[seg64]).to(torch.float32) / band[seg64].to(torch.float32)
+    rps = rows_per_seg[seg64].to(torch.float32)
+    row = row_base[seg64] + rmi.f32_to_i32(frac * rps)
+    counts = partition.bucket_histogram(row, n_rows)
+    return (hi, lo, *grid_rows(hi, lo, row, counts, capacity), counts)
+
+
+def grid_fast_path(
+    model: rmi.RMIParams,
+    keys: torch.Tensor,
+    seg: torch.Tensor,
+    row_base: torch.Tensor,
+    rows_per_seg: torch.Tensor,
+    *,
+    n_rows: int,
+    capacity: int,
+):
+    """The grid graph's fast path, with nothing read back: returns
+    ``(perm, overflowed, hi, lo)`` as device tensors.  ``perm`` is the
+    answer only when ``overflowed`` is false; otherwise the caller takes
+    :func:`stable_segmented_perm` over ``(seg, hi, lo)``."""
+    hi, lo, hi_m, lo_m, val_m, counts = segmented_grid_rows(
+        model, keys, seg, row_base, rows_per_seg,
+        n_rows=n_rows, capacity=capacity,
+    )
+    _, _, val_s = ops.sort_rows(hi_m, lo_m, val_m)
+    # the flag is read later, so an overflowing count may point past
+    # the grid: clamp, so the discarded gather still stays inside it
+    flat = _flat_index(counts, keys.shape[0], capacity)
+    perm = val_s.reshape(-1)[flat.clamp_(0, n_rows * capacity - 1)]
+    return perm, (counts > capacity).any(), hi, lo
+
+
+def fused_segmented_sort(
+    model: rmi.RMIParams,
+    keys: torch.Tensor,
+    seg: torch.Tensor,
+    row_base: torch.Tensor,
+    rows_per_seg: torch.Tensor,
+    *,
+    n_rows: int,
+    capacity: int,
+) -> tuple[torch.Tensor, bool]:
+    """``(perm, overflowed)``: the grid graph with its overflow fallback
+    resolved (reads the flag, so it waits for the device)."""
+    perm, overflow, hi, lo = grid_fast_path(
+        model, keys, seg, row_base, rows_per_seg,
+        n_rows=n_rows, capacity=capacity,
+    )
+    if bool(overflow):
+        return stable_segmented_perm(seg, hi, lo), True
+    return perm, False
+
+
+def flat_segmented_sort(keys: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
+    """Flat stable segmented sort: encode + one stable ``(seg, hi, lo)``
+    sort, the row index carried (the grid's fallback promoted to the
+    primary dispatch)."""
+    return stable_segmented_perm(seg, *ops.encode_keys(keys))
 
 
 def sort_host(model: rmi.RMIParams, keys: np.ndarray) -> np.ndarray:

@@ -1,8 +1,10 @@
 """Equi-depth model-based partitioning (paper §3.3) + radix baseline, for
 the PyTorch port (port of ``src/repro/core/partition.py``).
 
-The dense ``(n_buckets, capacity)`` grid of :func:`bucket_matrix` is the
-fused grid graph's routing layer.  These are tensor-level operations, not
+The dense ``(n_buckets, capacity)`` grid of :func:`bucket_grid` is the
+device LearnedSort's routing layer (``learned_sort.grid_rows``), and
+:func:`bucket_matrix`'s that of the distributed router and the MoE
+dispatch.  These are tensor-level operations, not
 kernels, apart from the counts (the histogram kernel through
 ``ops.bucket_histogram``): they use PyTorch's stable sort, scatters and
 cumulative sums, and none of them waits on the device.

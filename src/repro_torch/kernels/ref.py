@@ -44,7 +44,7 @@ def sort_rows_ref(
 
 def segmented_sort_ref(seg, hi, lo) -> np.ndarray:
     """Stable (seg, hi, lo)-ascending permutation — the NumPy oracle for
-    ``kernels/fused.fused_segmented_sort`` (ties keep input order)."""
+    ``core/learned_sort.fused_segmented_sort`` (ties keep input order)."""
     return np.lexsort(
         (np.asarray(lo), np.asarray(hi), np.asarray(seg))
     ).astype(np.int32)

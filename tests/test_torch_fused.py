@@ -1,5 +1,6 @@
-"""Port parity: the fused segmented sort graphs and the batched executor
-against ``repro.kernels.fused`` / ``repro.core.executor``.
+"""Port parity: the super-batch sort graphs (``repro_torch.core.
+learned_sort``) and the batched executor against ``repro.kernels.fused``
+/ ``repro.core.executor``.
 
 The port's grid graph runs on the CPU with its kernels' plain versions
 (the wrappers take the plain path for CPU tensors); the JAX graph runs
@@ -22,9 +23,9 @@ from repro.data import gensort  # noqa: E402
 from repro.kernels import fused as jfused  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.core import executor as tex  # noqa: E402
+from repro_torch.core import learned_sort as tls  # noqa: E402
 from repro_torch.core import rmi as trmi  # noqa: E402
 from repro_torch.core.format import GENSORT as TGENSORT  # noqa: E402
-from repro_torch.kernels import fused as tfused  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 
 
@@ -51,7 +52,7 @@ def _both(model, keys, seg, row_base, rows_per_seg, n_rows, capacity):
         jnp.asarray(rows_per_seg), n_rows=n_rows, capacity=capacity,
         use_kernels=False,
     )
-    perm_t, over_t = tfused.fused_segmented_sort(
+    perm_t, over_t = tls.fused_segmented_sort(
         trmi.params_from_numpy(model), torch.from_numpy(keys),
         torch.from_numpy(seg), torch.from_numpy(row_base),
         torch.from_numpy(rows_per_seg), n_rows=n_rows, capacity=capacity,
@@ -85,10 +86,20 @@ def test_grid_perm_equals_jax_and_oracle(n, n_segs):
     assert over_t == over_j
 
 
-def test_all_duplicates_overflow_flag_set_in_both():
+@pytest.mark.parametrize("flood_row", ["first", "last"])
+def test_all_duplicates_overflow_flag_set_in_both(flood_row):
+    """A flood of one key overflows its row in both graphs.  The port's
+    fast path still compacts before the flag is read: a flood in the
+    last row points past the grid, where an unclamped gather raises on
+    the CPU."""
     n, s_max = 512, 8
     model = _model()
     keys = np.tile(gensort.uniform_keys(1, seed=5)[:, :8], (n, 1))
+    if flood_row == "last":
+        # a few smaller keys widen the segment's band, so the flood of
+        # the largest key lands in the segment's last row
+        keys[:] = 0xFF
+        keys[:12] = gensort.uniform_keys(12, seed=6)[:, :8]
     seg = np.zeros(n, np.int32)
     n_rows, capacity = jfused.plan_batch(n, s_max)
     row_base = np.zeros(s_max, np.int32)
@@ -100,7 +111,7 @@ def test_all_duplicates_overflow_flag_set_in_both():
     assert over_j and over_t
     np.testing.assert_array_equal(perm_t.numpy(), perm_j)
     # the fast path alone reports the flag as a tensor, unread
-    _, flag, _, _ = tfused.grid_fast_path(
+    _, flag, _, _ = tls.grid_fast_path(
         trmi.params_from_numpy(model), torch.from_numpy(keys),
         torch.from_numpy(seg), torch.from_numpy(row_base),
         torch.from_numpy(rps), n_rows=n_rows, capacity=capacity,
@@ -115,18 +126,18 @@ def test_flat_graph_equals_jax(n, n_segs):
     keys[rng.random(n) < 0.3] = keys[0]  # duplicate keys across segments
     seg = rng.integers(0, n_segs, size=n).astype(np.int32)
     want = np.asarray(jfused.flat_segmented_sort(jnp.asarray(keys), jnp.asarray(seg)))
-    got = tfused.flat_segmented_sort(torch.from_numpy(keys), torch.from_numpy(seg))
+    got = tls.flat_segmented_sort(torch.from_numpy(keys), torch.from_numpy(seg))
     np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_pad_target_and_plan_batch_equal_jax():
     for n in list(range(1, 300)) + [4097, 12_345, 1_333_333, (1 << 20) + 1]:
-        assert tfused.pad_target(n) == jfused.pad_target(n)
+        assert tls.pad_target(n) == jfused.pad_target(n)
         for s in (1, 15, 32):
-            assert tfused.plan_batch(n, s) == jfused.plan_batch(n, s)
+            assert tls.plan_batch(n, s) == jfused.plan_batch(n, s)
     # the main path's batch at the 256 MB budget: two ~667k partitions
-    assert tfused.pad_target(1_333_333) == 1_441_792
-    assert tfused.plan_batch(1_441_792, 15) == (8192, 1024)
+    assert tls.pad_target(1_333_333) == 1_441_792
+    assert tls.plan_batch(1_441_792, 15) == (8192, 1024)
 
 
 # ---------------------------------------------------------------------------
