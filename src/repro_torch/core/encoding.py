@@ -67,6 +67,16 @@ def packed_key(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
     return (hi - 2**31) * 2**32 + lo
 
 
+def unpack_key(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact inverse of :func:`packed_key`: ``(hi, lo)`` int64-carried
+    words.  ``v >> 32`` is an arithmetic shift, so it gives ``hi - 2**31``
+    for every sign of ``v``, and the low 32 bits are ``lo``.  ``v`` is
+    overwritten: it becomes ``lo``, so the words take no more memory than
+    ``v`` and one new tensor."""
+    hi = (v >> 32).add_(2**31)
+    return hi, v.bitwise_and_(_MASK32)
+
+
 def encode_np(keys: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """NumPy twin of :func:`encode` for the host-side (file) pipeline:
     ``uint32`` words, as the reference returns them."""

@@ -100,9 +100,11 @@ def _compact(
     )
 
 
-def _key_order(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
-    """Stable ``(hi, lo)``-ascending permutation, int64."""
-    return torch.sort(encoding.packed_key(hi, lo), stable=True).indices
+def _key_sort(hi: torch.Tensor, lo: torch.Tensor):
+    """Stable ``(hi, lo)``-ascending sort of the packed words:
+    ``(values, indices)``, the sorted :func:`encoding.packed_key` and the
+    int64 permutation."""
+    return torch.sort(encoding.packed_key(hi, lo), stable=True)
 
 
 def grid_shape(
@@ -204,9 +206,11 @@ def sort_oracle(
     hi: torch.Tensor, lo: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Reference comparison sort: stable by (hi, lo); returns the sorted
-    words and the int32 permutation."""
-    perm = _key_order(hi, lo)
-    return hi[perm], lo[perm], perm.to(torch.int32)
+    words and the int32 permutation.  The words are unpacked from the
+    sort's own sorted keys, a stream, not gathered through the
+    permutation."""
+    keys, perm = _key_sort(hi, lo)
+    return *encoding.unpack_key(keys), perm.to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -240,7 +244,7 @@ def stable_segmented_perm(
     """Stable ``(seg, hi, lo)``-ascending permutation, int32: two stable
     passes, least significant key first (the packed ``(hi, lo)`` word,
     then ``seg``), so ties keep input order."""
-    by_key = _key_order(hi, lo)
+    by_key = _key_sort(hi, lo).indices
     by_seg = torch.sort(seg[by_key], stable=True).indices
     return by_key[by_seg].to(torch.int32)
 

@@ -1,6 +1,7 @@
 """Port parity: ``repro_torch.core.encoding`` against ``repro.core.encoding``
 (bit-equal words and features on the ``test_encode_kernel_sweep`` grid;
-the base-95 oracle equal, and ``packed_key`` in its order)."""
+the base-95 oracle equal, ``packed_key`` in its order and
+``unpack_key`` its exact inverse)."""
 
 import numpy as np
 import pytest
@@ -80,6 +81,27 @@ def test_packed_key_keeps_unsigned_order():
     )
     got = torch.sort(key, stable=True).indices.numpy()
     np.testing.assert_array_equal(got, np.lexsort((lo, hi)))
+
+
+def test_unpack_key_inverts_packed_key():
+    """``unpack_key(packed_key(hi, lo))`` is ``(hi, lo)`` bit for bit, on
+    seeded words and on every edge word in either place (0, ``2**31 -
+    1``, ``2**31``, ``2**32 - 1``, SENTINEL), with ``lo`` written into
+    the packed key's own buffer."""
+    edges = np.array([0, 2**31 - 1, 2**31, 2**32 - 1, tenc.SENTINEL], np.int64)
+    rng = np.random.default_rng(11)
+    seeded = rng.integers(0, 2**32, size=4000, dtype=np.int64)
+    hi = np.concatenate([np.repeat(edges, edges.size), seeded, edges, seeded[:5]])
+    lo = np.concatenate(
+        [np.tile(edges, edges.size), rng.permutation(seeded), seeded[-5:], edges]
+    )
+    v = tenc.packed_key(torch.from_numpy(hi), torch.from_numpy(lo))
+    ptr = v.data_ptr()
+    got_hi, got_lo = tenc.unpack_key(v)
+    assert got_hi.dtype == got_lo.dtype == torch.int64
+    np.testing.assert_array_equal(got_hi.numpy(), hi)
+    np.testing.assert_array_equal(got_lo.numpy(), lo)
+    assert got_lo.data_ptr() == ptr
 
 
 def test_ascii_digits_and_constants():

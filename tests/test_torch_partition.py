@@ -8,6 +8,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from repro.core import encoding as jenc  # noqa: E402
 from repro.core import learned_sort as jls  # noqa: E402
@@ -133,13 +134,35 @@ def test_radix_and_model_buckets_equal_jax(skewed):
     )
 
 
-def test_sort_oracle_and_sort_host_equal_jax():
-    keys = gensort.skewed_keys(5000, seed=4)  # duplicate-heavy prefixes
+def _oracle_keys(kind: str) -> np.ndarray:
+    """Keys for the oracle's parity: the skewed gensort corpus; the same
+    with a tail of all-0xFF rows (SENTINEL in both words, as callers pad);
+    one key repeated; keys drawn with repeats from a pool whose ``hi``
+    straddles ``2**31`` (first byte 0x7F or 0x80, both edge words
+    included)."""
+    if kind == "skewed":
+        return gensort.skewed_keys(5000, seed=4)  # duplicate-heavy prefixes
+    if kind == "sentinel_tail":
+        keys = gensort.skewed_keys(3000, seed=5)
+        return np.concatenate([keys, np.full((1096, keys.shape[1]), 0xFF, np.uint8)])
+    if kind == "allequal":
+        return np.repeat(gensort.uniform_keys(1, seed=6), 4096, axis=0)
+    rng = np.random.default_rng(7)
+    pool = rng.integers(0, 256, size=(500, 10), dtype=np.uint8)
+    pool[:, 0] = rng.choice([0x7F, 0x80], size=500)
+    pool[0, :4], pool[1, :4] = (0x7F, 0xFF, 0xFF, 0xFF), (0x80, 0, 0, 0)
+    return pool[rng.integers(0, 500, size=4000)]
+
+
+@pytest.mark.parametrize("kind", ["skewed", "sentinel_tail", "allequal", "straddle"])
+def test_sort_oracle_and_sort_host_equal_jax(kind):
+    keys = _oracle_keys(kind)
     hi, lo = jenc.encode_np(keys)
     hj, lj, pj = jls.sort_oracle(jnp.asarray(hi), jnp.asarray(lo))
     ht, lt, pt = tls.sort_oracle(
         torch.from_numpy(hi.astype(np.int64)), torch.from_numpy(lo.astype(np.int64))
     )
+    assert pt.dtype == torch.int32
     np.testing.assert_array_equal(pt.numpy(), np.asarray(pj))
     np.testing.assert_array_equal(ht.numpy(), np.asarray(hj).astype(np.int64))
     np.testing.assert_array_equal(lt.numpy(), np.asarray(lj).astype(np.int64))
@@ -148,3 +171,35 @@ def test_sort_oracle_and_sort_host_equal_jax():
         tls.sort_host(trmi.params_from_numpy(model), keys),
         jls.sort_host(model, keys),
     )
+
+
+class _AtenOps(TorchDispatchMode):
+    """Records every aten op dispatched inside it, with its kwargs."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append((func, kwargs or {}))
+        return func(*args, **(kwargs or {}))
+
+
+def test_sort_oracle_sorts_once_and_gathers_nothing():
+    """The oracle's words come from its one stable sort's own sorted keys:
+    exactly one ``aten.sort``, stable, and no gather through the
+    permutation (``index``, ``gather``, ``index_select``, ``take``)."""
+    hi, lo = jenc.encode_np(gensort.skewed_keys(2000, seed=8))
+    with _AtenOps() as seen:
+        tls.sort_oracle(
+            torch.from_numpy(hi.astype(np.int64)),
+            torch.from_numpy(lo.astype(np.int64)),
+        )
+    packets = [func.overloadpacket for func, _ in seen.ops]
+    sorts = [(f, kw) for f, kw in seen.ops if f.overloadpacket is torch.ops.aten.sort]
+    assert len(sorts) == 1 and sorts[0][1].get("stable") is True, sorts
+    gathers = {
+        torch.ops.aten.index, torch.ops.aten.gather,
+        torch.ops.aten.index_select, torch.ops.aten.take,
+    }
+    assert not [p for p in packets if p in gathers], packets
