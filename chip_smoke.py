@@ -26,7 +26,18 @@ Phases, one line each (any failure exits non-zero):
    count (116,224), 464,896 and 2**20 bins, on routed, uniform,
    out-of-range and all-equal ids, with its strategy;
    and the launch floor (a 1-element PyTorch add, timed the same way)
-   beside RMI's serving shape and the histogram;
+   beside RMI's serving shape and the histogram; the full-key encode on
+   ``(n, 10)`` slices of one pool of 10-byte keys at stride 10, as the
+   full-key cell reads them (2**25 to 2**28 rows, first rows at every
+   offset of a 4-byte word), timed at 2**28 against its bound at 22 B a
+   record;
+2b. full key — ``ops.encode_full_keys`` then ``learned_sort.sort_device
+   (..., tail)``, the full-key cell's call, on 2**22 keys on the card:
+   skewed (every call takes the stable fallback) and uniform with 8-byte
+   ties of differing tails planted inside one row (the row sorter).
+   Launches are counted from 0, each kept and held bit-equal to its
+   plain version; the answer equals ``testing.full_key_ref``'s, words
+   and permutation, and the full-key counters count the calls;
 3. main    — ``repro_torch.core.external.sort_file`` under
    ``SortConfig(manifest=True)`` (device ``cuda``) on a 1 GB skewed
    gensort file (10M records), validated, with every kernel of the sort
@@ -41,8 +52,12 @@ Phases, one line each (any failure exits non-zero):
    sha256 as the port's host-executor output, through the batched
    executor and through the per-partition device chain
    (``executor="per_partition"``: RMI kernel → bucket grid → row-sort
-   kernel a partition), whose row sorter is also timed against
-   ``torch.sort`` at the chain's own row shape;
+   kernel a partition; its 10-byte keys ordered whole on the card, by
+   their tail words, with no host touch-up), whose row sorter is also
+   timed against ``torch.sort`` at the chain's own row shape; and
+   ``sort_partition`` on a uniform and a skewed 2**20-record partition
+   timed both ways, the whole key on the card against 8 bytes on the
+   card and the host's memcmp touch-up, the same bytes either way;
 6. cache   — the same file sorted twice on the card under one
    ``ModelCache``: a miss, then a hit, with the same bytes;
 7. mergesort — ``mergesort.sort_file`` on that file, the same bytes;
@@ -192,7 +207,8 @@ Phases, one line each (any failure exits non-zero):
 
 It then prints one JSON line describing each kernel (the LM phases'
 launches under ``launches_lm``, ``launches_train`` and ``launches_mesh``,
-the quickstart's under ``launches_quickstart``) (times from CUDA
+the quickstart's under ``launches_quickstart``, the full-key phase's
+under ``launches_full_key``) (times from CUDA
 events, bounds from the bytes each call must move at 3.35 TB/s or its
 operations at 67 TFLOP/s), the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -220,6 +236,14 @@ BATCH = 1_441_792  # pad_target of two ~667k-record partitions
 IDENTITY_RECORDS = 1_000_000
 # one power-of-two partition: the per-partition chain pads nothing
 POW2_RECORDS = 1 << 20
+# the full-key cell's call sizes (its pool's (n, 10) slices), and the
+# keys the full-key phase sorts on the card
+FULL_KEY_ROWS = (1 << 25, 1 << 26, 1 << 27, 1 << 28)
+FULL_KEY_RECORDS = 1 << 22
+# kernel results -> the launch count (KERNEL_WRAPPERS name) each reads
+RESULT_WRAPPERS = (("encode", "encode_keys"), ("rmi_bucket", "rmi_bucket"),
+                   ("sort_rows", "sort_rows"), ("histogram", "bucket_histogram"),
+                   ("encode_full", "encode_full_keys"))
 # the grid's rows per batch; one bin past a block's shared memory (the
 # split strategy); 8 blocks' shared memory (global); learned_sort.Q_RES
 # (the split strategy's top bin count, read from the device, is added)
@@ -415,6 +439,7 @@ def phase_kernels(torch, dev) -> dict:
         f"{results['encode']['ms']:.4f} ms (warm L2 "
         f"{cuda_ms(torch, launch, cold=False):.4f} ms), plain "
         f"{results['encode']['plain_ms']:.4f} ms, bound {b_ms:.4f} ms")
+    results["encode_full"] = encode_full_check(torch, dev)
 
     # keys as the main path routes them: two range partitions, each in an
     # order of its own
@@ -645,6 +670,46 @@ def phase_kernels(torch, dev) -> dict:
     return results
 
 
+def encode_full_check(torch, dev) -> dict:
+    """The full-key encode kernel against its plain version, bit for bit,
+    on ``(n, 10)`` slices of one pool of 10-byte keys (every byte value)
+    at stride 10, as the full-key cell reads them: each of its call sizes
+    with the first row at another offset of a 4-byte word; timed at the
+    largest, from an unaligned row."""
+    from repro_torch.kernels import encode
+
+    n = FULL_KEY_ROWS[-1]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    pool = torch.randint(0, 256, (n + 4, 10), dtype=torch.uint8, device=dev,
+                         generator=gen)
+    for rows, off in zip(FULL_KEY_ROWS, (1, 2, 3, 0)):
+        keys = pool[off : off + rows]
+        err = max_abs_err(torch, encode.encode_full_cuda(keys),
+                          encode.encode_full_plain(keys))
+        require(err == 0, f"full-key encode kernel at ({rows}, 10), row 0 at "
+                          f"byte {10 * off}, differs from its plain version by {err}")
+    keys = pool[1 : 1 + n]
+    words = encode.encode_full_cuda(keys)
+    launch = raw_launch(torch, "repro_encode_full", keys, 10, 10, *words, n)
+    # least bytes, as encode_full_roofline counts them: the key read and
+    # three 4-byte words written
+    b_ms, b_by = bound(n * (10 + 12), 0)
+    entry = dict(
+        name="encode_full", route="cuda", source=encode.SOURCE, replaces=None,
+        max_abs_err=0, ms=cuda_ms(torch, launch),
+        plain_ms=cuda_ms(torch, lambda: encode.encode_full_plain(keys), reps=5),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    )
+    log(f"kernels: encode_full ({n}, 10) at stride 10 bit-equal, and at "
+        f"{FULL_KEY_ROWS[:-1]} rows; kernel {entry['ms']:.4f} ms, plain "
+        f"{entry['plain_ms']:.4f} ms, bound {b_ms:.4f} ms = "
+        f"{b_ms / entry['ms']:.1%} of bound")
+    del pool, keys, words
+    torch.cuda.empty_cache()
+    return entry
+
+
 def bitonic_sweep(torch, dev) -> None:
     """The row sorter at every width the main path can produce, ~8.4M
     slots each: bit-equal to its plain version on five kinds of rows,
@@ -823,6 +888,104 @@ def launch_counts() -> dict:
     return {f.__name__: f.launches for f in ops.KERNEL_WRAPPERS}
 
 
+def phase_full_key(torch, results: dict) -> None:
+    """The full-key cell's call, ``ops.encode_full_keys`` then
+    ``sort_device(..., tail)``, on keys on the card down each path:
+    skewed keys (the spike's 8-byte prefixes outgrow their rows, so the
+    stable fallback sorts them), and uniform keys with a run of 8-byte
+    ties of differing tails, and equal whole keys inside it, planted in
+    one row (the row sorter).  Launches are counted from 0, kept and held
+    bit-equal to their plain versions; the answer is the plain
+    reference's (``testing.full_key_ref``), and the counters count it."""
+    import numpy as np
+
+    from repro_torch.core import learned_sort, rmi
+    from repro_torch.data import gensort
+    from repro_torch.kernels import ops
+    from repro_torch.testing import full_key_ref
+
+    t0 = time.perf_counter()
+    n = FULL_KEY_RECORDS
+    uniform = gensort.uniform_keys(n, seed=13)
+    uniform[1:600:3, :8] = uniform[0, :8]
+    uniform[700:720] = uniform[9]
+    uniform[700:720, :8] = uniform[0, :8]
+    launches_by_path = {}
+    for what, keys, path in (
+        ("skewed", gensort.skewed_keys(n, seed=12), "fallback"),
+        ("uniform, 8-byte ties planted in a row", uniform, "rows"),
+    ):
+        # the main path's leaves: a quarter of the sample
+        model = rmi.fit(keys[:: n // 65536], n_leaf=16_384).to("cuda")
+        t = torch.from_numpy(keys).cuda()
+        ops.reset_launches()
+        with keep_launches() as kept:
+            hi, lo, tail = ops.encode_full_keys(t)
+            *got, overflow = learned_sort.sort_device(model, hi, lo, tail,
+                                                      return_overflow=True)
+            torch.cuda.synchronize()
+            launches = launch_counts()
+        f = learned_sort.sort_device
+        require((f.full_key_calls, f.full_key_records) == (1, n),
+                f"full key ({what}): counted {f.full_key_calls} calls, "
+                f"{f.full_key_records} records")
+        require(bool(overflow) == (path == "fallback"),
+                f"full key ({what}): overflow {bool(overflow)}, not the {path} path")
+        held = hold_kept(torch, kept, f"full key ({what})")
+        require_held(held, launches, f"full key ({what})")
+        require(launches["encode_full_keys"] == launches["rmi_bucket"] == 1
+                and launches["sort_rows"] == (path == "rows")
+                and launches["encode_keys"] == 0,
+                f"full key ({what}): launches {launches}")
+        want = full_key_ref.full_key_sort(t)
+        for name, g, w in zip(("hi", "lo", "tail", "perm"), got, want):
+            require(torch.equal(g, w), f"full key ({what}): {name} differs "
+                                       f"from the plain reference's")
+        eight = learned_sort.sort_device(model, hi, lo)[2]
+        ties = int((eight != got[3]).sum())
+        require(ties > 0, f"full key ({what}): the 8-byte order is already the "
+                          f"whole key's")
+        launches_by_path[path] = launches
+        log(f"full key: {n} {what} keys on the card, the {path} path; words and "
+            f"perm == the plain reference's; {ties} records placed otherwise "
+            f"than by their first 8 bytes; launches {launches}, each held")
+    for key, name in RESULT_WRAPPERS:
+        results[key]["launches_full_key"] = {
+            path: by_name[name] for path, by_name in launches_by_path.items()
+        }
+    log(f"full key: phase {time.perf_counter() - t0:.1f} s")
+
+
+def time_partition_orders(torch, model, block, reps: int = 5) -> tuple:
+    """``executor.sort_partition`` of one partition on the card, timed
+    (host clock, median of ``reps`` each, taken in turns) both ways: its
+    keys ordered whole on the card, and ordered by 8 bytes on the card
+    then touched up on the host (the chain's way for wider keys, here by
+    lowering ``encoding.FULL_KEY_BYTES`` to 8 for the call).  Returns
+    the two medians in seconds; the two outputs must be the same."""
+    import numpy as np
+
+    from repro_torch.core import encoding, executor
+
+    dev = torch.device("cuda")
+    full_bytes = encoding.FULL_KEY_BYTES
+    times: dict = {True: [], False: []}
+    outs = {}
+    for _ in range(reps):
+        for whole in (True, False):
+            encoding.FULL_KEY_BYTES = full_bytes if whole else encoding.ENCODED_BYTES
+            try:
+                t = time.perf_counter()
+                outs[whole] = executor.sort_partition(model, block, device=dev)
+                times[whole].append(time.perf_counter() - t)
+            finally:
+                encoding.FULL_KEY_BYTES = full_bytes
+    require(np.array_equal(outs[True].data, outs[False].data),
+            "sort_partition: the whole key on the card and the host touch-up "
+            "give other bytes")
+    return statistics.median(times[True]), statistics.median(times[False])
+
+
 def phase_per_partition(torch, inp: str, refsum: int, want: str,
                         tmp: str) -> None:
     """The per-partition device chain, driven through ``sort_file`` on two
@@ -835,6 +998,8 @@ def phase_per_partition(torch, inp: str, refsum: int, want: str,
     not overflow.  Then each kernel is held against its plain version on
     the chain's own model and partitions, kept as the chain ran, and the
     row sorter is timed at the chain's rows."""
+    import numpy as np
+
     from repro_torch.core import (
         encoding, external, learned_sort, partition, validate,
     )
@@ -860,9 +1025,9 @@ def phase_per_partition(torch, inp: str, refsum: int, want: str,
     chain = learned_sort.sort_device
     kept = []
 
-    def keep(model, hi, lo, **kw):
-        got = chain(model, hi, lo, **kw)
-        kept.append((len(runs), model, hi, lo, got[3]))
+    def keep(model, hi, lo, tail=None, **kw):
+        got = chain(model, hi, lo, tail, **kw)
+        kept.append((len(runs), model, hi, lo, tail, got[-1]))
         return got
 
     runs = []
@@ -902,7 +1067,7 @@ def phase_per_partition(torch, inp: str, refsum: int, want: str,
     for i, (what, sha, st) in enumerate(runs):
         shapes = sorted({
             learned_sort.grid_shape(hi.shape[0])
-            for r, _, hi, _, _ in kept if r == i
+            for r, _, hi, *_ in kept if r == i
         })
         log(f"bytes: {what}, per_partition on the card == host, sha256 "
             f"{sha}; partitions of {st.partition_counts} records, rows x "
@@ -910,11 +1075,15 @@ def phase_per_partition(torch, inp: str, refsum: int, want: str,
             f"{st.device_dispatches} dispatches, wall {st.wall_seconds:.3f} "
             f"s ({st.rate_mb_s():.1f} MB/s)")
     log(f"bytes: per_partition launches {launches}")
+    # 10-byte keys: every partition's tail words went to the card
+    require(all(tail is not None for *_, tail, _ in kept),
+            "per_partition sorted a partition of 10-byte keys without its "
+            "tail words")
 
     # each kernel against its plain version on the chain's own inputs;
     # the row sorter timed once at each row shape the chain sorted
     timed = set()
-    for r, model, hi, lo, overflow in kept:
+    for r, model, hi, lo, _, overflow in kept:
         nb, cap = learned_sort.grid_shape(hi.shape[0])
         ids = rmi.rmi_bucket_cuda(model, hi, lo, nb)
         err = max_abs_err(torch, [ids.cpu()], [rmi.rmi_bucket_plain(
@@ -955,6 +1124,24 @@ def phase_per_partition(torch, inp: str, refsum: int, want: str,
     log(f"bytes: per_partition chain: RMI and sort_rows bit-equal to their "
         f"plain versions on all {len(kept)} partitions the chain sorted")
     os.unlink(pow2)
+
+    # one partition of 2**20 records sorted both ways: uniform keys, and
+    # the skewed file's largest spike (its 8-byte prefixes repeat)
+    from repro_torch.core import rmi as rmi_lib
+    from repro_torch.core.format import RecordBlock
+
+    for what, skewed in (("uniform", False), ("skewed spike", True)):
+        recs = gensort.make_records(POW2_RECORDS, skewed=skewed, seed=10,
+                                    start_idx=(1 << 29) if skewed else 0)
+        block = RecordBlock(recs.reshape(-1),
+                            np.arange(POW2_RECORDS + 1, dtype=np.int64) * 100,
+                            recs[:, :10])
+        model = rmi_lib.fit(recs[::16, :10], n_leaf=16_384).to("cuda")
+        whole, touchup = time_partition_orders(torch, model, block)
+        log(f"bytes: sort_partition of {POW2_RECORDS} {what} records: 10-byte "
+            f"keys whole on the card {whole * 1e3:.2f} ms, 8 bytes on the card "
+            f"+ host touch-up {touchup * 1e3:.2f} ms (median of 5 each, same "
+            f"bytes)")
     log(f"bytes: per_partition phase {time.perf_counter() - t0:.1f} s")
 
 
@@ -1250,9 +1437,9 @@ def sort_fn_check(torch, mesh, n: int) -> dict:
 
 @contextlib.contextmanager
 def keep_launches():
-    """While active, every launch of the encode, RMI, row-sort and
-    histogram kernels keeps what the path gave the kernel and what it
-    gave back, as
+    """While active, every launch of the encode, RMI, row-sort,
+    histogram and full-key encode kernels keeps what the path gave the
+    kernel and what it gave back, as
     ``(entry, args, outputs)`` in the list it yields — including a
     launch whose result the path then threw away for the stable
     fallback."""
@@ -1261,7 +1448,8 @@ def keep_launches():
     kept, saved = [], []
     for mod, name in ((encode, "encode_cuda"), (rmi, "rmi_bucket_cuda"),
                       (bitonic, "sort_rows_cuda"),
-                      (histogram, "histogram_cuda")):
+                      (histogram, "histogram_cuda"),
+                      (encode, "encode_full_cuda")):
         fn = getattr(mod, name)
         saved.append((mod, name, fn))
 
@@ -1281,7 +1469,8 @@ def keep_launches():
 # kept entry -> the wrapper whose launch count it matches
 KEPT_WRAPPER = {"encode_cuda": "encode_keys", "rmi_bucket_cuda": "rmi_bucket",
                 "sort_rows_cuda": "sort_rows",
-                "histogram_cuda": "bucket_histogram"}
+                "histogram_cuda": "bucket_histogram",
+                "encode_full_cuda": "encode_full_keys"}
 
 
 def hold_kept(torch, kept: list, what: str) -> dict:
@@ -1297,6 +1486,7 @@ def hold_kept(torch, kept: list, what: str) -> dict:
             p.to("cpu"), hi.cpu(), lo.cpu(), nb),
         "sort_rows_cuda": bitonic.sort_rows_plain,
         "histogram_cuda": lambda ids, nb, *_: histogram.histogram_plain(ids, nb),
+        "encode_full_cuda": encode.encode_full_plain,
     }
     held: dict = {}
     for name, args, out in kept:
@@ -1344,10 +1534,11 @@ def count_dispatches():
 
 def require_lm_launches(torch, kept: list, launches: dict, dispatches: int,
                         what: str) -> None:
-    """An LM path launches no encode, RMI or row-sort kernel, and the
-    histogram kernel once a MoE dispatch, each launch held bit-equal to
-    its plain version."""
-    sorters = {k: launches[k] for k in ("encode_keys", "rmi_bucket", "sort_rows")}
+    """An LM path launches no encode, RMI, row-sort or full-key encode
+    kernel, and the histogram kernel once a MoE dispatch, each launch held
+    bit-equal to its plain version."""
+    sorters = {k: launches[k]
+               for k in ("encode_keys", "rmi_bucket", "sort_rows", "encode_full_keys")}
     require(not any(sorters.values()),
             f"{what}: a sorter kernel launched {launches}")
     require(launches["bucket_histogram"] == dispatches,
@@ -1537,9 +1728,7 @@ def phase_distributed(torch, inp: str, refsum: int, want: str, n: int,
         f"{[round(c['seconds'], 3) for c in c4]}")
     log(f"dist: (b)+(c) job of {DIST_RANKS} ranks {job_s:.1f} s")
     os.unlink(path)
-    for key, name in (("encode", "encode_keys"), ("rmi_bucket", "rmi_bucket"),
-                      ("sort_rows", "sort_rows"),
-                      ("histogram", "bucket_histogram")):
+    for key, name in RESULT_WRAPPERS:
         results[key]["launches_distributed"] = {
             run: by_name[name] for run, by_name in dist_launches.items()
         }
@@ -1993,9 +2182,7 @@ def phase_lm(torch, results: dict) -> None:
         for arch in LM_ARCHS:
             lm_cuda_vs_cpu(torch, np, arch)
         log(f"lm: (c) {time.perf_counter() - t1:.1f} s")
-    for key, name in (("encode", "encode_keys"), ("rmi_bucket", "rmi_bucket"),
-                      ("sort_rows", "sort_rows"),
-                      ("histogram", "bucket_histogram")):
+    for key, name in RESULT_WRAPPERS:
         results[key]["launches_lm"] = {
             run: by_name[name] for run, by_name in lm_launches.items()
         }
@@ -2239,9 +2426,7 @@ def phase_train(torch, results: dict, runs: str = "abde") -> None:
                         "(c) training")
     kept.clear()
     log(f"train: (c) {time.perf_counter() - t1:.1f} s")
-    for key, name in (("encode", "encode_keys"), ("rmi_bucket", "rmi_bucket"),
-                      ("sort_rows", "sort_rows"),
-                      ("histogram", "bucket_histogram")):
+    for key, name in RESULT_WRAPPERS:
         results[key]["launches_train"] = {
             run: by_name[name] for run, by_name in train_launches.items()
         }
@@ -2564,9 +2749,7 @@ def phase_mesh(torch, results: dict, started: tuple | None = None) -> None:
     here = launch_counts()
     require(not any(launches.values()) and not any(here.values()),
             f"a sorter kernel launched in the mesh phase: ranks {launches}, here {here}")
-    for key, name in (("encode", "encode_keys"), ("rmi_bucket", "rmi_bucket"),
-                      ("sort_rows", "sort_rows"),
-                      ("histogram", "bucket_histogram")):
+    for key, name in RESULT_WRAPPERS:
         results[key]["launches_mesh"] = launches[name]
     log(f"mesh: launches of the four sorter kernels on the {len(ranks)} rank(s) of (a)+(b) "
         f"{launches}; in this process (the reference step, the one-rank resume) {here}")
@@ -2636,8 +2819,7 @@ def phase_examples(torch, results: dict) -> None:
         for name in ("encode_keys", "rmi_bucket", "sort_rows"):
             require(q["launches"][name] > 0,
                     f"examples: {name} was never launched on the quickstart path")
-    for key, name in (("encode", "encode_keys"), ("rmi_bucket", "rmi_bucket"),
-                      ("sort_rows", "sort_rows"), ("histogram", "bucket_histogram")):
+    for key, name in RESULT_WRAPPERS:
         results[key]["launches_quickstart"] = q["launches"][name]
     log(f"examples: torch_quickstart.py {EX_QUICK_RECORDS} {EX_QUICK_READERS}: validated, "
         f"sha256 == host executor's {host_sha}, executor {q['executor']}, sort "
@@ -2752,8 +2934,9 @@ def main() -> int:
         for line in lines:
             log(f"build:   {src}: {line}")
 
-    # 2. kernels
+    # 2. kernels; 2b. the full-key sort
     results = phase_kernels(torch, torch.device("cuda"))
+    phase_full_key(torch, results)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         # 3. main path
@@ -2803,9 +2986,7 @@ def main() -> int:
                 f"wall = {busy / stats.wall_seconds:.4%} (torch.profiler)")
             for sec, name, count in top:
                 log(f"main:   {sec * 1e3:9.3f} ms  x{count:<4d} {name[:90]}")
-        for key, name in (("encode", "encode_keys"), ("rmi_bucket", "rmi_bucket"),
-                          ("sort_rows", "sort_rows"),
-                          ("histogram", "bucket_histogram")):
+        for key, name in RESULT_WRAPPERS:
             results[key]["launches"] = launches[name]
 
         # 10. the mesh-scale sort, first on the main phase's file
@@ -2864,10 +3045,9 @@ def main() -> int:
 
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_distributed", "launches_lm", "launches_train", "launches_mesh",
-            "launches_quickstart", "max_abs_err",
+            "launches_quickstart", "launches_full_key", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    kernels = [{k: results[n][k] for k in keys}
-               for n in ("encode", "rmi_bucket", "sort_rows", "histogram")]
+    kernels = [{k: results[n][k] for k in keys} for n, _ in RESULT_WRAPPERS]
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -2,7 +2,11 @@
 
 Port of ``src/repro/core/encoding.py``.  The first 8 key bytes pack
 big-endian into a ``(hi, lo)`` pair of unsigned 32-bit words, which is
-order-equivalent to memcmp over those bytes (DESIGN.md §2).
+order-equivalent to memcmp over those bytes (DESIGN.md §2).  The
+**tail word** (:func:`encode_tail`) packs the bytes after them, 8 up to
+the key's end, at most :data:`TAIL_BYTES`, the same way, so a key of up
+to :data:`FULL_KEY_BYTES` bytes is ordered as memcmp orders it by
+``(hi, lo, tail)``: gensort's 10-byte key, as valsort checks it.
 
 PyTorch on the CPU implements neither ``<<`` nor ``-`` nor ``<`` for
 ``uint32``, so the port carries every word **zero-extended in int64**:
@@ -20,6 +24,11 @@ import torch
 
 # Number of key bytes captured numerically by the (hi, lo) embedding.
 ENCODED_BYTES = 8
+
+# Key bytes after the encoded ones that the tail word carries, and the
+# widest key that ``(hi, lo, tail)`` orders whole.
+TAIL_BYTES = 4
+FULL_KEY_BYTES = ENCODED_BYTES + TAIL_BYTES
 
 # Sorts after every real key (keys are printable ASCII < 0x80, so a
 # 0xFFFFFFFF word is never produced by ``encode``).
@@ -57,6 +66,51 @@ def encode(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     hi = (k[:, 0] << 24) | (k[:, 1] << 16) | (k[:, 2] << 8) | k[:, 3]
     lo = (k[:, 4] << 24) | (k[:, 5] << 16) | (k[:, 6] << 8) | k[:, 7]
     return hi, lo
+
+
+def _tail_width(width: int) -> int:
+    """Key bytes past the encoded ones of a ``width``-byte key; a key
+    wider than :data:`FULL_KEY_BYTES` raises (nothing is truncated)."""
+    if width > FULL_KEY_BYTES:
+        raise ValueError(
+            f"a {width}-byte key is wider than the {FULL_KEY_BYTES} bytes "
+            "that (hi, lo, tail) order"
+        )
+    return max(0, width - ENCODED_BYTES)
+
+
+def encode_tail(keys: torch.Tensor) -> torch.Tensor:
+    """``(N, K) uint8`` keys, ``K <= 12`` -> the tail word, int64-carried
+    u32: key bytes 8 up to the key's end, big-endian, zero-padded to
+    :data:`TAIL_BYTES` (0 for a key of 8 bytes or fewer)."""
+    t = keys[:, ENCODED_BYTES:].to(torch.int64)
+    tail = torch.zeros(keys.shape[0], dtype=torch.int64, device=keys.device)
+    for b in range(TAIL_BYTES):
+        tail <<= 8
+        if b < _tail_width(keys.shape[1]):
+            tail |= t[:, b]
+    return tail
+
+
+def tail_np(keys: np.ndarray) -> np.ndarray:
+    """NumPy twin of :func:`encode_tail`: ``uint32`` tail words."""
+    w = _tail_width(keys.shape[1])
+    tail = np.zeros(keys.shape[0], dtype=np.uint32)
+    for b in range(TAIL_BYTES):
+        tail <<= np.uint32(8)
+        if b < w:
+            tail |= keys[:, ENCODED_BYTES + b].astype(np.uint32)
+    return tail
+
+
+def tail_bytes(tail: torch.Tensor, width: int) -> torch.Tensor:
+    """Inverse of :func:`encode_tail`: the ``(N, width - 8)`` uint8 key
+    bytes past the encoded ones of ``width``-byte keys (an empty second
+    dimension for ``width <= 8``)."""
+    w = _tail_width(width)
+    shifts = torch.tensor([8 * (TAIL_BYTES - 1 - b) for b in range(w)],
+                          dtype=torch.int64, device=tail.device)
+    return ((tail[:, None] >> shifts) & 0xFF).to(torch.uint8)
 
 
 def packed_key(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:

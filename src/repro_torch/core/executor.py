@@ -31,7 +31,9 @@ An executor consumes a stream of ``(tag, RecordBlock)`` items and yields
 
 Every executor produces output byte-identical to the host
 path: the stable memcmp order of the full key window, with the
-touch-up beyond byte 8 applied in the executor's epilogue.
+touch-up beyond byte 8 applied in the executor's epilogue (the
+per-partition chain orders a window of at most 12 bytes whole on the
+device, by its tail word, and needs none).
 """
 
 from __future__ import annotations
@@ -178,6 +180,10 @@ def sort_partition(
     an overflow that took the chain's stable fallback is counted in
     ``executor.fallbacks``).
 
+    A key window of at most 12 bytes is sorted whole by the chain
+    (``hi``, ``lo`` and the tail word); a wider one by its first 8
+    bytes, then touched up on the host.
+
     Only the key-prefix matrix is sorted; the permutation then gathers
     the (possibly variable-length) record bodies in one ``take``.
     Empty and single-record partitions short-circuit before any device
@@ -194,19 +200,25 @@ def sort_partition(
     # Padding words are SENTINEL zero-extended (never -1), so they sort
     # after every real key and are dropped by the perm < m filter.
     m_pad = learned_sort._next_pow2(m)
-    words = np.full((2, m_pad), SENTINEL, dtype=np.int64)
+    # a key window of at most 12 bytes is ordered whole on the device by
+    # its tail word too; a wider one is touched up on the host after
+    full = keys.shape[1] <= encoding.FULL_KEY_BYTES
+    words = np.full((2 + full, m_pad), SENTINEL, dtype=np.int64)
     words[0, :m], words[1, :m] = encoding.encode_np(keys)
+    if full:
+        words[2, :m] = encoding.tail_np(keys)
     if executor is not None:
         executor._count_dispatch(m_pad, m, ("per_partition", m_pad))
     words_d = torch.from_numpy(words).to(device)
-    _, _, perm, overflowed = learned_sort.sort_device(
-        model, words_d[0], words_d[1], return_overflow=True
+    *_, perm, overflowed = learned_sort.sort_device(
+        model, *words_d, return_overflow=True
     )
     if overflowed and executor is not None:
         executor.fallbacks += 1
     perm = perm.cpu().numpy()
     perm = perm[perm < m]  # drop sentinel padding
-    perm = _memcmp_touchup(keys, perm)
+    if not full:
+        perm = _memcmp_touchup(keys, perm)
     return block.take(perm)
 
 

@@ -19,15 +19,24 @@ the per-partition executor runs it once a partition:
 
 Monotone model + per-bucket sort => globally sorted, with no merge.
 
+Given the keys' tail words too (``encoding.encode_tail``: key bytes 8-11),
+:func:`sort_device` orders by the whole key, as valsort checks gensort's
+10 bytes: either path's 8-byte answer is stable, so each run of equal
+``(hi, lo)`` holds its records in input order, and :func:`order_ties`
+then sorts every record by ``(run, tail)``, one stable sort, in which a
+record moves only inside its run.
+
 Each call runs inside a ``repro_torch.sort_device`` profiler span, and
 each step inside one of its own (``core.stages.stats.span``):
 ``rmi_bucket`` and ``sort_rows`` (in ``kernels/ops``), ``overflow_test``
 (the count, the compare and the host sync), then ``grid`` and
-``compact`` on a row-sorted call or ``fallback`` on one that overflowed.
+``compact`` on a row-sorted call or ``fallback`` on one that overflowed,
+and last ``full_key`` on a call given tail words.
 Plain ``int`` counters on :func:`sort_device` count its ``calls`` and
-``records``, and of those the ``fallback_calls`` and ``fallback_records``
-that the stable fallback sorted; :func:`reset_counters` sets them to 0,
-and so does ``ops.reset_launches``.
+``records``, of those the ``fallback_calls`` and ``fallback_records``
+that the stable fallback sorted, and the ``full_key_calls`` and
+``full_key_records`` given tail words; :func:`reset_counters` sets them
+to 0, and so does ``ops.reset_launches``.
 
 The **super-batch** graph is ``sort_file``'s device path: the batched
 executor packs partitions into one padded batch with segment ids and
@@ -145,6 +154,7 @@ def sort_device(
     model: rmi.RMIParams,
     hi: torch.Tensor,
     lo: torch.Tensor,
+    tail: "torch.Tensor | None" = None,
     *,
     n_buckets: int = 0,
     capacity_factor: float = 2.0,
@@ -168,10 +178,19 @@ def sort_device(
     bucket) the answer is the stable ``(hi, lo)`` sort of the whole
     input, and no grid is built.  Either way the result is the
     reference's, bit for bit: its ``lax.cond`` tests the same counts.
+
+    With ``tail`` (the keys' tail words, ``encoding.encode_tail``) the
+    answer is the stable sort by ``(hi, lo, tail)``, the whole key of up
+    to 12 bytes, and the result carries the sorted tail words after
+    ``lo``: ``(hi_sorted, lo_sorted, tail_sorted, perm)``.  Without it
+    the call runs none of the tail's work.
     """
     n = hi.shape[0]
     sort_device.calls += 1
     sort_device.records += n
+    if tail is not None:
+        sort_device.full_key_calls += 1
+        sort_device.full_key_records += n
     with span("repro_torch.sort_device"):
         n_buckets, capacity = grid_shape(n, n_buckets, capacity_factor)
         bucket = ops.rmi_bucket(model, hi, lo, n_buckets)
@@ -193,13 +212,42 @@ def sort_device(
             rows = ops.sort_rows(*grid)
             with span("repro_torch.compact"):
                 out = _compact(*rows, counts, n)
+        if tail is not None:
+            with span("repro_torch.full_key"):
+                out = order_ties(*out, tail)
     return (*out, overflow) if return_overflow else out
+
+
+def order_ties(
+    hi_s: torch.Tensor,
+    lo_s: torch.Tensor,
+    perm: torch.Tensor,
+    tail: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A stable ``(hi, lo)`` answer ``(hi_s, lo_s, perm)`` and the input's
+    tail words -> the stable ``(hi, lo, tail)`` answer ``(hi_s, lo_s,
+    tail_s, perm)``.  Each run of equal ``(hi_s, lo_s)`` is numbered (a
+    scan of its starts), and one stable sort of ``run << 32 | tail``
+    orders every record inside its run by tail, ties in the input order
+    the run already holds.  No record leaves its run, so ``hi_s`` and
+    ``lo_s`` stand, and the tails are the sort's own keys, unpacked."""
+    n = hi_s.shape[0]
+    starts = torch.ones(n, dtype=torch.bool, device=hi_s.device)
+    torch.ne(hi_s[1:], hi_s[:-1], out=starts[1:])
+    starts[1:] |= lo_s[1:] != lo_s[:-1]
+    key = torch.cumsum(starts, 0)
+    del starts
+    key <<= 32
+    key |= tail.index_select(0, perm)
+    key, order = torch.sort(key, stable=True)
+    return hi_s, lo_s, key.bitwise_and_(0xFFFFFFFF), perm[order]
 
 
 def reset_counters() -> None:
     """Set :func:`sort_device`'s counters to 0."""
     sort_device.calls = sort_device.records = 0
     sort_device.fallback_calls = sort_device.fallback_records = 0
+    sort_device.full_key_calls = sort_device.full_key_records = 0
 
 
 def sort_oracle(

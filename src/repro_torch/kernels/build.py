@@ -42,6 +42,7 @@ _P, _I, _LL, _U, _F = (
 )
 _SIGNATURES = {
     "repro_encode": (_I, [_P, _P, _P, _LL, _P]),
+    "repro_encode_full": (_I, [_P, _LL, _I, _P, _P, _P, _LL, _P]),
     "repro_rmi_bucket": (
         _I, [_P, _P, _LL, _U, _U, _F, _F, _F, _I, _P, _I, _P, _P],
     ),

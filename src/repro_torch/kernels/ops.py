@@ -16,8 +16,9 @@ each launch took (``histogram.STRATEGIES``).
 callers above the kernels that register with it (``COUNTER_RESETS``):
 one call starts every count of the device path at 0.
 
-``encode_keys``, ``rmi_bucket`` and ``sort_rows`` each run inside a
-``repro_torch.<name>`` profiler span (``core.stages.stats.span``).
+``encode_keys``, ``encode_full_keys``, ``rmi_bucket`` and ``sort_rows``
+each run inside a ``repro_torch.<name>`` profiler span
+(``core.stages.stats.span``).
 """
 
 from __future__ import annotations
@@ -50,6 +51,24 @@ def encode_keys(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
             return encode.encode_cuda(keys)
         _require_cpu(keys, "encode_keys")
         return encode.encode_plain(keys)
+
+
+def encode_full_keys(
+    keys: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(N, K) uint8 keys, K <= 12 -> (hi, lo, tail) int64-carried u32
+    words, which order the keys as memcmp does (``encoding.encode_tail``);
+    a wider key raises ``ValueError``.  The kernel reads the rows at
+    their own stride; rows it cannot read in place are copied first."""
+    with span("repro_torch.encode_full_keys"):
+        if keys.is_cuda:
+            if encode.row_stride(keys) is None:
+                keys = keys.contiguous()
+            out = encode.encode_full_cuda(keys)
+            encode_full_keys.launches += 1
+            return out
+        _require_cpu(keys, "encode_full_keys")
+        return encode.encode_full_plain(keys)
 
 
 def rmi_bucket(
@@ -142,7 +161,9 @@ def sort_rows(
         return tuple(t[:, :c] for t in out)
 
 
-KERNEL_WRAPPERS = (encode_keys, rmi_bucket, sort_rows, bucket_histogram)
+KERNEL_WRAPPERS = (
+    encode_keys, rmi_bucket, sort_rows, bucket_histogram, encode_full_keys
+)
 # resets of the callers' counters (``core.learned_sort.reset_counters``),
 # appended by their modules: the kernels import none of their callers
 COUNTER_RESETS: list = []

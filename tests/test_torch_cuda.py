@@ -51,6 +51,7 @@ from repro_torch.kernels import (  # noqa: E402
     rmi,
 )
 from repro_torch.serve.index import SortedFileIndex  # noqa: E402
+from repro_torch.testing import full_key_ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -84,6 +85,39 @@ def test_encode_kernel_rejects_misaligned(cuda):
     raw = torch.zeros(8 * 64 + 1, dtype=torch.uint8, device=cuda)
     with pytest.raises(ValueError):
         encode.encode_cuda(raw[1:].view(64, 8))
+
+
+@pytest.mark.parametrize("k", [1, 8, 10, 12])
+@pytest.mark.parametrize("layout", ["contiguous", "odd_offset", "stride16", "stride100"])
+@pytest.mark.parametrize("n", [1, 1000, 1 << 17])
+def test_encode_full_kernel_equals_plain(cuda, n, layout, k):
+    """The full-key kernel reads rows in place at their stride (up to 16
+    bytes, from any byte offset); wider strides are copied first by the
+    wrapper.  Every word equals the plain version's."""
+    rng = np.random.default_rng(n + k)
+    raw = torch.from_numpy(rng.integers(0, 256, (n + 1) * 100, dtype=np.uint8)).to(cuda)
+    if layout == "contiguous":
+        keys = raw[: n * k].view(n, k)
+    elif layout == "odd_offset":
+        keys = raw[3 : 3 + n * k].view(n, k)
+    elif layout == "stride16":
+        keys = raw[: n * 16].view(n, 16)[:, :k]
+    else:
+        keys = raw[: n * 100].view(n, 100)[:, :k]
+    assert (encode.row_stride(keys) is None) == (layout == "stride100" and n > 1)
+    ops.reset_launches()
+    got = ops.encode_full_keys(keys)
+    assert ops.encode_full_keys.launches == 1
+    for g, w in zip(got, encode.encode_full_plain(keys)):
+        assert torch.equal(g, w)
+
+
+def test_encode_full_kernel_rejects(cuda):
+    raw = torch.zeros(64 * 100, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):
+        encode.encode_full_cuda(raw.view(64, 100)[:, :10])  # stride 100
+    with pytest.raises(ValueError):
+        ops.encode_full_keys(raw[: 64 * 13].view(64, 13))  # 13 bytes
 
 
 @pytest.mark.parametrize("n_leaf", [64, 25_000])
@@ -414,7 +448,8 @@ def test_wrappers_count_launches(cuda):
     )
     assert h.shape == (40, 100)
     ops.bucket_histogram(ops.rmi_bucket(model, hi, lo, 16), 16)
-    assert [f.launches for f in ops.KERNEL_WRAPPERS] == [1, 2, 1, 1]
+    ops.encode_full_keys(keys)
+    assert [f.launches for f in ops.KERNEL_WRAPPERS] == [1, 2, 1, 1, 1]
     assert ops.bucket_histogram.strategy_launches == {
         "global": 0, "shared": 1, "split": 0}
     # a launch the kernel refuses (int64 ids) is not counted
@@ -460,7 +495,7 @@ def test_executor_on_card_matches_host(cuda, sizes, dup, kw):
     for i in range(len(blocks)):
         assert got[i].tobytes() == host[i].tobytes(), i
     # every kernel once a dispatch: the histogram counts the grid's rows
-    assert [f.launches for f in ops.KERNEL_WRAPPERS] == [ex.dispatches] * 4
+    assert [f.launches for f in ops.KERNEL_WRAPPERS] == [ex.dispatches] * 4 + [0]
     assert (ex.fallbacks >= 1) == dup
 
 
@@ -530,6 +565,33 @@ def test_sort_device_kernels_equal_plain(cuda, n, kind):
         1, int(not overflow)
     )
     for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("n", [3, 4097, 1 << 20])
+@pytest.mark.parametrize("kind", ["uniform", "skewed", "ties"])
+def test_sort_device_full_key_kernels_equal_plain(cuda, n, kind):
+    """The full-key chain on the card (the encode kernel, the RMI and
+    row-sort kernels, the tie pass) equals it on the CPU and the plain
+    reference; ``ties`` plants a run of 8-byte ties with other tails in
+    uniform keys, which stay on the row path."""
+    gen = gensort.skewed_keys if kind == "skewed" else gensort.uniform_keys
+    keys = gen(n, seed=n)
+    if kind == "ties":
+        keys[1 : min(n, 600) : 3, :8] = keys[0, :8]
+    model = trmi.fit(keys[:: max(1, n // 65536)], n_leaf=max(1024, n // 256))
+    t = torch.from_numpy(keys)
+    want = learned_sort.sort_device(model, *ops.encode_full_keys(t), return_overflow=True)
+    ops.reset_launches()
+    got = learned_sort.sort_device(model.to(cuda), *ops.encode_full_keys(t.to(cuda)),
+                                   return_overflow=True)
+    assert ops.encode_full_keys.launches == 1
+    assert got[4] == want[4]
+    if kind != "skewed":
+        assert not got[4]
+    for g, w in zip(got[:4], want[:4]):
+        assert torch.equal(g.cpu(), w)
+    for g, w in zip(got[:4], full_key_ref.full_key_sort(t)):
         assert torch.equal(g.cpu(), w)
 
 
